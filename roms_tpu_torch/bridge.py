@@ -1,0 +1,70 @@
+"""Carry grids, states and forcing between the two packages through
+numpy.
+
+The JAX package's pytrees go in as dicts of numpy arrays, one entry per
+dataclass field (None for an absent optional field), and come back out
+of the port the same way.  This is how the tests feed both packages
+identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from roms_tpu_torch.grid import Grid
+from roms_tpu_torch.state import Forcing, OceanState
+
+
+def _tensor(x, dtype, device):
+    """Floating arrays take the model dtype; integer and bool arrays keep
+    their kind."""
+    if x is None:
+        return None
+    a = np.array(x)      # a private copy: never aliases the caller's array
+    if np.issubdtype(a.dtype, np.floating):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    return torch.as_tensor(a, device=device)
+
+
+def _from_numpy(cls, d: dict, dtype, device):
+    return cls(**{f.name: _tensor(d[f.name], dtype, device)
+                  for f in dataclasses.fields(cls) if f.name in d})
+
+
+def grid_from_numpy(d: dict, *, dtype: torch.dtype,
+                    device: torch.device) -> Grid:
+    return _from_numpy(Grid, d, dtype, device)
+
+
+def state_from_numpy(d: dict, *, dtype: torch.dtype,
+                     device: torch.device) -> OceanState:
+    for name in ("upscale", "t_budget", "uv_budget"):
+        if d.get(name) is not None:
+            raise NotImplementedError(f"state.{name} is not ported yet "
+                                      "(ROADMAP Queue 1 item 11)")
+    return _from_numpy(OceanState, d, dtype, device)
+
+
+def forcing_from_numpy(d: dict, *, dtype: torch.dtype,
+                       device: torch.device) -> Forcing:
+    for name in ("bry", "cdr", "bgc"):
+        if d.get(name) is not None:
+            raise NotImplementedError(f"forcing.{name} is not ported yet "
+                                      "(ROADMAP Queue 1)")
+    return _from_numpy(Forcing, d, dtype, device)
+
+
+def to_numpy(x):
+    """Tensor -> ndarray; dataclass of tensors -> dict of ndarrays (None
+    stays None)."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if dataclasses.is_dataclass(x):
+        return {f.name: to_numpy(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    raise TypeError(f"to_numpy: unsupported {type(x).__name__}")

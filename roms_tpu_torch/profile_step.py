@@ -1,0 +1,175 @@
+"""Where the time of one baroclinic step goes, on one CUDA device.
+
+    python3 -m roms_tpu_torch.profile_step
+
+Runs Filament at 512x256x60 in float32 (the shape of bench.py:71-74 and
+chip_smoke.py's phase 4) through `driver.run`, without diagnostics, and reads the
+step in three windows of one run, after 2 warm-up steps:
+
+  wall    three windows of 5 steps, host clock between two
+          synchronizes: ms/step as chip_smoke.py reads it;
+  device  2 steps under torch.profiler: the summed time of the kernels
+          on the device, their count, the busy share (kernel time over
+          the wall of the unprofiled windows) and the kernels that took
+          most of it, by name;
+  layers  2 steps with each layer of the step (fast loop, momentum
+          r.h.s., prsgrd, rho_eos, omega, set_huv/set_huv1, the two hand
+          kernels) bracketed by synchronizes.  The brackets take away the
+          overlap of host and device, so these steps are slower than the
+          wall windows; the shares are what the layers weigh.
+
+Each reading is a line of its own on stdout.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+from roms_tpu_torch import stepper
+from roms_tpu_torch.cases import filament
+from roms_tpu_torch.driver import run
+from roms_tpu_torch.ops import (barotropic, cuda_solve, cuda_tracer, eos,
+                                kinematics, prsgrd)
+
+WARM, WALL_WINDOWS, WALL_STEPS, PROF_STEPS, LAYER_STEPS = 2, 3, 5, 2, 2
+TOP = 12    # kernels listed by name
+
+# (module, attribute) of each layer the step calls through a module name
+LAYERS = (
+    (barotropic, "fast_loop"), (stepper, "_uv_rhs"), (prsgrd, "prsgrd"),
+    (eos, "rho_eos"), (kinematics, "omega"), (kinematics, "set_huv"),
+    (kinematics, "set_huv1"), (cuda_tracer, "tracer_stage"),
+    (cuda_solve, "momentum_implicit"),
+)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _bracket(device, spent):
+    """Wrap each layer so that its calls are timed between synchronizes;
+    returns the function that puts the originals back."""
+    originals = [(mod, name, getattr(mod, name)) for mod, name in LAYERS]
+    for mod, name, fn in originals:
+        def timed(*a, _fn=fn, _name=name, **k):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            _sync(device)
+            spent[_name] += time.perf_counter() - t0
+            return out
+        if hasattr(fn, "launches"):
+            # the kernel wrappers count on their module-level name
+            timed.launches = fn.launches
+        setattr(mod, name, timed)
+
+    def restore():
+        for mod, name, fn in originals:
+            if hasattr(fn, "launches"):
+                fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
+    return restore
+
+
+def _device_kernels(prof):
+    """{kernel name: [count, microseconds]} of the device's kernels."""
+    kernels = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name][0] += 1
+            kernels[e.name][1] += e.time_range.elapsed_us()
+    return kernels
+
+
+def profile(cfg, device, dtype=torch.float32, say=print):
+    """Run the three windows on Filament at `cfg`; returns the readings."""
+    grid, st, frc = filament.setup(cfg, dtype=dtype, device=device)
+    w_end = WARM + WALL_WINDOWS * WALL_STEPS
+    p_end = w_end + PROF_STEPS
+    l_end = p_end + LAYER_STEPS
+    marks, spent, out = {}, defaultdict(float), {}
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    restore = None
+
+    def hook(_, iic):
+        # the profiler's start and stop stay outside every timed window
+        nonlocal restore
+        _sync(device)
+        if iic == p_end:
+            prof.stop()
+            restore = _bracket(device, spent)
+        marks[iic] = time.perf_counter()
+        if iic == w_end:
+            prof.start()
+
+    _sync(device)
+    try:
+        run(grid, st, frc, cfg, nsteps=l_end, collect_diag=False,
+            step_hook=hook)
+    finally:
+        if restore is not None:
+            restore()
+
+    shape = f"{cfg.nx}x{cfg.ny}x{cfg.nz} {str(dtype)[6:]}"
+    wall = []
+    for w in range(WALL_WINDOWS):
+        a = WARM + w * WALL_STEPS
+        wall.append(1e3 * (marks[a + WALL_STEPS] - marks[a]) / WALL_STEPS)
+    out["wall_ms"] = wall
+    say(f"[wall] Filament {shape}: ms/step over {WALL_WINDOWS} windows of "
+        f"{WALL_STEPS} steps: " + ", ".join(f"{x:.3f}" for x in wall))
+
+    kernels = _device_kernels(prof)
+    n = sum(c for c, _ in kernels.values())
+    busy = 1e-3 * sum(us for _, us in kernels.values()) / PROF_STEPS
+    out.update(kernels_per_step=n / PROF_STEPS, device_ms=busy)
+    if n == 0:
+        say("[device] not measured: the profiler saw no device kernels")
+    else:
+        share = busy / (sum(wall) / len(wall))
+        out["busy_share"] = share
+        say(f"[device] {PROF_STEPS} profiled steps: kernel time "
+            f"{busy:.3f} ms/step, {n / PROF_STEPS:.0f} kernels/step, busy "
+            f"share {share:.4f} of the mean wall step")
+        ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+        for name, (count, us) in ranked[:TOP]:
+            say(f"[device]   {1e-3 * us / PROF_STEPS:9.3f} ms/step "
+                f"{100 * 1e-3 * us / PROF_STEPS / busy:6.2f} % "
+                f"{count // PROF_STEPS:6d}/step  {name[:90]}")
+
+    step_ms = 1e3 * (marks[l_end] - marks[p_end]) / LAYER_STEPS
+    out["layers_ms"] = {k: 1e3 * v / LAYER_STEPS for k, v in spent.items()}
+    out["layer_step_ms"] = step_ms
+    say(f"[layers] {LAYER_STEPS} steps, each layer between synchronizes: "
+        f"{step_ms:.3f} ms/step")
+    rest = step_ms
+    for name, ms in sorted(out["layers_ms"].items(), key=lambda kv: -kv[1]):
+        rest -= ms
+        say(f"[layers]   {name:18s} {ms:9.3f} ms/step "
+            f"{100 * ms / step_ms:6.2f} %")
+    say(f"[layers]   {'rest':18s} {rest:9.3f} ms/step "
+        f"{100 * rest / step_ms:6.2f} %")
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    cfg = filament.config().replace(nx=512, ny=256, nz=60)
+    profile(cfg, torch.device("cuda", 0))
+
+
+if __name__ == "__main__":
+    main()

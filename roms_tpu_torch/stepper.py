@@ -1,0 +1,354 @@
+"""One baroclinic time step: LF-AM3 predictor/corrector with the
+forward-backward barotropic sub-cycle (port of roms_tpu/stepper.py;
+reference: src/main.F:333-520, pre_step3d4S.F, step3d_uv1.F,
+step3d_uv2.F, step3d_t_ISO.F).
+
+The port keeps one tracer path and one momentum path, the kernels':
+both tracer stages go through `cuda_tracer.tracer_stage` and all four
+implicit momentum solves through `cuda_solve.momentum_implicit`, which
+launch the CUDA kernels on the card and run their plain versions on the
+CPU.  Every feature this slice does not carry raises NotImplementedError
+before any work is done.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from roms_tpu_torch import vcoord
+from roms_tpu_torch.config import ModelConfig
+from roms_tpu_torch.grid import Grid
+from roms_tpu_torch.ops import advection as adv
+from roms_tpu_torch.ops import barotropic, bc, cuda_solve, cuda_tracer, eos
+from roms_tpu_torch.ops import kinematics, vmix
+from roms_tpu_torch.ops import prsgrd as prsgrd_mod
+from roms_tpu_torch.ops.kinematics import hz_u, hz_v
+from roms_tpu_torch.parallel.halo import make_halo_fill, shift
+from roms_tpu_torch.state import Forcing, OceanState
+
+AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
+
+
+def _unsupported(cfg: ModelConfig, forcing: Forcing, grid: Grid):
+    """Names of the enabled features this slice does not port."""
+    checks = (
+        ("lmd_kpp", cfg.lmd_kpp),
+        ("river_source", cfg.river_source),
+        ("pipe_source", cfg.pipe_source),
+        ("forcing.cdr", forcing.cdr is not None),
+        ("bgc_model", cfg.bgc_model != "none"),
+        ("adv_isoneutral", cfg.adv_isoneutral),
+        ("non_hydrostatic", cfg.non_hydrostatic),
+        ("tracer_diagnostics", cfg.tracer_diagnostics),
+        ("uv_diagnostics", cfg.uv_diagnostics),
+        ("upscale_output", cfg.upscale_output),
+        ("visc2 (visc3d)", cfg.uv_vis2 and (cfg.visc2 != 0.0
+                                            or grid.visc2_r is not None)),
+        ("non-periodic axis", not cfg.fully_periodic),
+        ("tracer stage scope", not cuda_tracer.usable(cfg)),
+    )
+    return [name for name, on in checks if on]
+
+
+def _uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig, scheme):
+    """Coriolis + horizontal + vertical momentum advection r.h.s.
+    (reference: compute_horiz_rhs_uv_terms.h + compute_vert_rhs_uv_terms.h)."""
+    ru = torch.zeros_like(u)
+    rv = torch.zeros_like(v)
+    if cfg.uv_cor or (cfg.curvgrid and cfg.uv_adv):
+        rc_u, rc_v = adv.coriolis_rhs(u, v, hz, grid, cfg)
+        ru = ru + rc_u
+        rv = rv + rc_v
+    if cfg.uv_adv:
+        ra_u, ra_v = adv.horiz_uv_adv_rhs(u, v, flx_u, flx_v, grid, cfg,
+                                          scheme)
+        ru = ru + ra_u
+        rv = rv + ra_v
+        ru = ru + adv.vert_uv_rhs_spline(u, hz, we, grid.umask, grid, cfg, "u")
+        rv = rv + adv.vert_uv_rhs_spline(v, hz, we, grid.vmask, grid, cfg, "v")
+    return ru, rv
+
+
+def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
+              cfg: ModelConfig, first_step: bool, halo) -> OceanState:
+    """Step body with a pluggable halo refresh; w1/w2 are the host
+    fast-time weights."""
+    missing = _unsupported(cfg, forcing, grid)
+    if missing:
+        raise NotImplementedError(
+            "not ported in this slice: " + ", ".join(missing))
+    pmn = grid.pm * grid.pn
+    hz_n = state.hz
+    zw_n, zr_n = state.z_w, state.z_r
+    akv, akt = state.akv, state.akt
+    hbls, hbbl = state.hbls, state.hbbl
+    ghat = None
+
+    # surface flux restoring toward SST/SSS (reference: surf_flux.F:140-163)
+    if cfg.qcorrection and forcing.sst is not None:
+        stflx = forcing.stflx.clone()
+        stflx[cfg.itemp] = -cfg.dsstdt * (state.t[cfg.itemp, -1] - forcing.sst)
+        forcing = forcing.replace(stflx=stflx)
+    if cfg.sflx_corr and cfg.salinity and forcing.sss is not None:
+        stflx = forcing.stflx.clone()
+        stflx[cfg.isalt] = stflx[cfg.isalt] - cfg.dsssdt * (
+            state.t[cfg.isalt, -1] - forcing.sss)
+        forcing = forcing.replace(stflx=stflx)
+
+    # ================= PREDICTOR (reference: main.F:385-423) =============
+    eos_n = eos.rho_eos(state.t, zr_n, zw_n, hz_n, grid.rmask, cfg,
+                        need_bvf=cfg.lmd_kpp)
+    flx_u, flx_v = kinematics.set_huv(state.u, state.v, hz_n, grid)
+    flx_u, flx_v = halo(flx_u), halo(flx_v)
+    dtau_o = 0.5 * cfg.dt if first_step else 0.6 * cfg.dt  # (omega.F:66-73)
+    om = kinematics.omega(flx_u, flx_v, zw_n, hz_n, forcing.swflx, grid,
+                          dtau_o, cfg, forcing)
+    we, wi = halo(om.we), halo(om.wi)
+
+    ru_p, rv_p = prsgrd_mod.prsgrd(eos_n.rho, eos_n.rho1, eos_n.qp1,
+                                   zr_n, zw_n, hz_n, grid, cfg,
+                                   ptide=forcing.ptide)
+
+    # pre_step3d: LF-AM3 predictor to n+1/2 (pre_step3d4S.F:124-545)
+    if first_step:
+        dtau = 0.5 * cfg.dt
+        cf_stp, cf_bak = 1.0, 0.0
+    else:
+        dtau = cfg.dt * (1.0 - AM3_CRV)
+        cf_stp, cf_bak = 0.5 + AM3_CRV, 0.5 - AM3_CRV
+
+    flx_div = 0.5 * dtau * pmn[None] * (
+        shift(flx_u, 0, 1) - flx_u + shift(flx_v, 1, 0) - flx_v
+        + (we[1:] + wi[1:]) - (we[:-1] + wi[:-1]))
+    hz_bak = hz_n + flx_div
+    hz_fwd = hz_n - flx_div
+
+    own = (grid.own_w, grid.own_e, grid.own_s, grid.own_n)
+    t_half = cuda_tracer.tracer_stage(
+        state.t, state.t_prev, flx_u, flx_v, hz_n, flx_div, we, wi,
+        akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+        cfg.ts_pred_scheme, dtau, cf_stp, cf_bak, False, "pred", own=own)
+
+    # momentum predictor
+    ru, rv = _uv_rhs(state.u, state.v, flx_u, flx_v, hz_n, we, grid, cfg,
+                     cfg.uv_pred_scheme)
+    ru = ru_p + ru
+    rv = rv_p + rv
+    rd = vmix.bottom_drag(state.u, state.v, hz_n, cfg)
+
+    dc0_u = dtau * 0.25 * (grid.pm + shift(grid.pm, 0, -1)) * (
+        grid.pn + shift(grid.pn, 0, -1))
+    dc0_v = dtau * 0.25 * (grid.pm + shift(grid.pm, -1, 0)) * (
+        grid.pn + shift(grid.pn, -1, 0))
+    hzbak_u = 0.5 * (hz_bak + shift(hz_bak, 0, -1))
+    hzbak_v = 0.5 * (hz_bak + shift(hz_bak, -1, 0))
+    rhs_u = hzbak_u * (cf_stp * state.u + cf_bak * state.u_prev) + dc0_u[None] * ru
+    rhs_v = hzbak_v * (cf_stp * state.v + cf_bak * state.v_prev) + dc0_v[None] * rv
+    u_half = cuda_solve.momentum_implicit(
+        rhs_u, 0.5 * (hz_fwd + shift(hz_fwd, 0, -1)),
+        0.5 * (akv + shift(akv, 0, -1)),
+        0.5 * (wi + shift(wi, 0, -1)), dc0_u, dtau, forcing.sustr, cfg,
+        bottom_drag_coeff=0.5 * (rd + shift(rd, 0, -1)))
+    v_half = cuda_solve.momentum_implicit(
+        rhs_v, 0.5 * (hz_fwd + shift(hz_fwd, -1, 0)),
+        0.5 * (akv + shift(akv, -1, 0)),
+        0.5 * (wi + shift(wi, -1, 0)), dc0_v, dtau, forcing.svstr, cfg,
+        bottom_drag_coeff=0.5 * (rd + shift(rd, -1, 0)))
+
+    # physical BCs + tracer ghost refresh (pre_step3d4S.F:493-550)
+    u_half = bc.u3dbc(u_half, state.u, state.u, state.v, grid, cfg,
+                      forcing.bry, pred_stage=True)
+    v_half = bc.v3dbc(v_half, state.v, state.u, state.v, grid, cfg,
+                      forcing.bry, pred_stage=True)
+    t_half = bc.t3dbc(t_half, state.t, state.u, state.v, grid, cfg,
+                      forcing.bry, pred_stage=True)
+    t_half = halo(t_half)
+
+    # set_HUV1: barotropic mismatch, fluxes at n+1/2 (set_depth.F:252-422)
+    h1 = kinematics.set_huv1(u_half, v_half, hz_n,
+                             state.du_avg1, state.dv_avg1,
+                             state.du_avg2, state.dv_avg2,
+                             state.du_avg_bak, state.dv_avg_bak,
+                             grid, cfg, first_step)
+    u_half, v_half = halo(h1.u), halo(h1.v)
+    flx_u_h, flx_v_h = halo(h1.flx_u), halo(h1.flx_v)
+
+    # ================= CORRECTOR (reference: main.F:425-450) =============
+    om = kinematics.omega(flx_u_h, flx_v_h, zw_n, hz_n, forcing.swflx, grid,
+                          cfg.dt, cfg, forcing)
+    we, wi = halo(om.we), halo(om.wi)
+    eos_h = eos.rho_eos(t_half, zr_n, zw_n, hz_n, grid.rmask, cfg,
+                        need_bvf=cfg.lmd_kpp)
+    ru_p, rv_p = prsgrd_mod.prsgrd(eos_h.rho, eos_h.rho1, eos_h.qp1,
+                                   zr_n, zw_n, hz_n, grid, cfg,
+                                   ptide=forcing.ptide)
+
+    # step3d_uv1: corrector r.h.s. + implicit vertical solve
+    # (step3d_uv1.F:123-297, IMPLICIT_BOTTOM_DRAG branch)
+    ru, rv = _uv_rhs(u_half, v_half, flx_u_h, flx_v_h, hz_n, we, grid, cfg,
+                     cfg.uv_corr_scheme)
+    ru = ru_p + ru
+    rv = rv_p + rv
+
+    hzu_n = hz_u(hz_n)
+    hzv_n = hz_v(hz_n)
+    dc0_u_c = cfg.dt * 0.25 * (grid.pm + shift(grid.pm, 0, -1)) * (
+        grid.pn + shift(grid.pn, 0, -1))
+    dc0_v_c = cfg.dt * 0.25 * (grid.pm + shift(grid.pm, -1, 0)) * (
+        grid.pn + shift(grid.pn, -1, 0))
+    rd_u = 0.5 * (rd + shift(rd, 0, -1))
+    rd_v = 0.5 * (rd + shift(rd, -1, 0))
+    vel_u = cuda_solve.momentum_implicit(
+        hzu_n * state.u + dc0_u_c[None] * ru, hzu_n,
+        0.5 * (akv + shift(akv, 0, -1)),
+        0.5 * (wi + shift(wi, 0, -1)), dc0_u_c, cfg.dt, forcing.sustr, cfg,
+        bottom_drag_coeff=rd_u)
+    vel_v = cuda_solve.momentum_implicit(
+        hzv_n * state.v + dc0_v_c[None] * rv, hzv_n,
+        0.5 * (akv + shift(akv, -1, 0)),
+        0.5 * (wi + shift(wi, -1, 0)), dc0_v_c, cfg.dt, forcing.svstr, cfg,
+        bottom_drag_coeff=rd_v)
+    hzu_new = vel_u * hzu_n
+    hzv_new = vel_v * hzv_n
+    # 3D -> 2D forcing integrals (step3d_uv1.F:194-205, :269-279)
+    rufrc = torch.sum(ru, dim=0) + grid.dm_u * grid.dn_u * (
+        forcing.sustr - rd_u * vel_u[0])
+    rvfrc = torch.sum(rv, dim=0) + grid.dm_v * grid.dn_v * (
+        forcing.svstr - rd_v * vel_v[0])
+
+    # ================= BAROTROPIC SUB-CYCLE (step2d_FB.F) ================
+    fast = barotropic.fast_loop(
+        state.zeta, state.ubar, state.vbar, rufrc, rvfrc,
+        eos_h.rho_s, eos_h.rho_a, forcing,
+        state.du_avg1, state.dv_avg1, state.du_avg2, state.dv_avg2,
+        w1, w2, grid, cfg, halo)
+    zeta_new = fast["zeta"]
+
+    # new vertical grid from the fast-averaged free surface
+    zw_new, zr_new, hz_new = vcoord.set_depth(zeta_new, grid.h, grid.hinv,
+                                              grid.cs_w, grid.cs_r,
+                                              cfg.hc, cfg.nz)
+    zw_new, zr_new, hz_new = halo(zw_new), halo(zr_new), halo(hz_new)
+
+    # ================= step3d_uv2 (step3d_uv2.F:82-786) ==================
+    hzu_nn = hz_u(hz_new)
+    hzv_nn = hz_v(hz_new)
+    # part (a): first mismatch correction (step3d_uv2.F:244-268, :374-398)
+    cf0_u = torch.sum(hzu_nn, dim=0)
+    dcol_u = torch.sum(hzu_new, dim=0)
+    mis_u = (dcol_u * grid.dn_u - fast["du_avg1"]) / (cf0_u * grid.dn_u)
+    u_new = hzu_new / hzu_nn - mis_u[None]
+    cf0_v = torch.sum(hzv_nn, dim=0)
+    dcol_v = torch.sum(hzv_new, dim=0)
+    mis_v = (dcol_v * grid.dm_v - fast["dv_avg1"]) / (cf0_v * grid.dm_v)
+    v_new = hzv_new / hzv_nn - mis_v[None]
+    if cfg.masking:
+        u_new = u_new * grid.umask[None]
+        v_new = v_new * grid.vmask[None]
+
+    u_new = bc.u3dbc(u_new, state.u, u_half, v_half, grid, cfg,
+                     forcing.bry, pred_stage=False)
+    v_new = bc.v3dbc(v_new, state.v, u_half, v_half, grid, cfg,
+                     forcing.bry, pred_stage=False)
+
+    # part (b): vertical integrals, barotropic replacement and the n+1/2
+    # flux correction (step3d_uv2.F:521-621)
+    dcu = hzu_nn * grid.dn_u[None]
+    dcv = hzv_nn * grid.dm_v[None]
+    inv_du = 1.0 / torch.sum(dcu, dim=0)
+    inv_dv = 1.0 / torch.sum(dcv, dim=0)
+    ubar_new = inv_du * fast["du_avg1"]
+    vbar_new = inv_dv * fast["dv_avg1"]
+    fc_u = inv_du * (torch.sum(dcu * u_new, dim=0) - fast["du_avg1"])
+    fc_v = inv_dv * (torch.sum(dcv * v_new, dim=0) - fast["dv_avg1"])
+    u_new = u_new - fc_u[None]
+    v_new = v_new - fc_v[None]
+    if cfg.masking:
+        u_new = u_new * grid.umask[None]
+        v_new = v_new * grid.vmask[None]
+    dlt, eps = cfg.coup_delta, cfg.coup_epsil
+    cf_u = dlt * flx_u_h + eps * dcu * (state.u + u_new)
+    cf_v = dlt * flx_v_h + eps * dcv * (state.v + v_new)
+    mis2_u = inv_du * (torch.sum(cf_u, dim=0) - fast["du_avg2"])
+    mis2_v = inv_dv * (torch.sum(cf_v, dim=0) - fast["dv_avg2"])
+    flx_u_c = cf_u - dcu * mis2_u[None]
+    flx_v_c = cf_v - dcv * mis2_v[None]
+
+    u_new, v_new = halo(u_new), halo(v_new)
+    flx_u_c, flx_v_c = halo(flx_u_c), halo(flx_v_c)
+    ubar_new, vbar_new = halo(ubar_new), halo(vbar_new)
+
+    # ================= TRACER CORRECTOR (main.F:469-473) =================
+    om = kinematics.omega(flx_u_c, flx_v_c, zw_new, hz_new, forcing.swflx,
+                          grid, cfg.dt, cfg, forcing)
+    we, wi = halo(om.we), halo(om.wi)
+
+    t_sec_c = state.t
+    if cfg.lmd_kpp:
+        # fold the penetrating-solar + nonlocal KPP terms into the base
+        # content (reference: step3d_t_ISO.F:961-1005)
+        nzz = cfg.nz
+        gsrc = forcing.srflx[None] * state.swrf[1:nzz]
+        if ghat is not None:
+            gsrc = gsrc - ghat[1:nzz] * (forcing.stflx[cfg.itemp]
+                                         - forcing.srflx)[None]
+        gw = torch.zeros_like(wi)
+        gw[1:nzz] = gsrc
+        t_sec_c = t_sec_c.clone()
+        t_sec_c[cfg.itemp] += cfg.dt * (gw[1:] - gw[:-1]) / hz_n
+        if cfg.salinity and ghat is not None:
+            gws = torch.zeros_like(wi)
+            gws[1:nzz] = -ghat[1:nzz] * forcing.stflx[cfg.isalt][None]
+            t_sec_c[cfg.isalt] += cfg.dt * (gws[1:] - gws[:-1]) / hz_n
+    mix = None
+    if cfg.ts_dif2 and (cfg.tnu2 != 0.0 or grid.diff2 is not None):
+        # t3dmix folded into the corrector kernel
+        diff2 = grid.diff2
+        if diff2 is None:
+            diff2 = torch.full((cfg.nt,) + tuple(grid.h.shape), cfg.tnu2,
+                               dtype=t_half.dtype, device=t_half.device)
+        mix = {"diff2": diff2, "pmon_u": grid.pmon_u, "pnom_v": grid.pnom_v}
+    t_new = cuda_tracer.tracer_stage(
+        t_half, t_sec_c, flx_u_c, flx_v_c, hz_n, hz_new, we, wi,
+        akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+        cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr",
+        stflx=forcing.stflx, mix=mix, own=own)
+    return _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half,
+                           v_half, zeta_new, ubar_new, vbar_new, u_new,
+                           v_new, flx_u_c, flx_v_c, we, wi, hz_new, zr_new,
+                           zw_new, akv, akt, hbls, hbbl, fast)
+
+
+def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
+                    zeta_new, ubar_new, vbar_new, u_new, v_new, flx_u_c,
+                    flx_v_c, we, wi, hz_new, zr_new, zw_new,
+                    akv, akt, hbls, hbbl, fast):
+    """Post-corrector tail: tracer BCs -> halo refresh -> final EOS ->
+    state assembly (reference: main.F:469-490).  The t3dmix tendency is
+    already in t_new (fused into the corrector stage)."""
+    t_new = bc.t3dbc(t_new, state.t, u_half, v_half, grid, cfg,
+                     forcing.bry, pred_stage=False)
+    t_new = halo(t_new)  # (reference: step3d_t_ISO.F:1167-1177)
+
+    # final density for diagnostics/output (reference: main.F:479)
+    eos_new = eos.rho_eos(t_new, zr_new, zw_new, hz_new, grid.rmask, cfg)
+
+    return state.replace(
+        upscale=None, t_budget=None, uv_budget=None,
+        zeta=zeta_new, ubar=ubar_new, vbar=vbar_new,
+        u=u_new, v=v_new, u_prev=state.u, v_prev=state.v,
+        t=t_new, t_prev=state.t,
+        z_w=zw_new, z_r=zr_new, hz=hz_new,
+        du_avg1=fast["du_avg1"], dv_avg1=fast["dv_avg1"],
+        du_avg2=fast["du_avg2"], dv_avg2=fast["dv_avg2"],
+        du_avg_bak=fast["du_avg_bak"], dv_avg_bak=fast["dv_avg_bak"],
+        flx_u=flx_u_c, flx_v=flx_v_c, we=we, wi=wi, rho=eos_new.rho,
+        akv=akv, akt=akt, hbls=hbls, hbbl=hbbl,
+        iic=state.iic + 1, time=state.time + cfg.dt)
+
+
+def step(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
+         cfg: ModelConfig, first_step: bool) -> OceanState:
+    """Single-block step."""
+    return step_impl(state, forcing, grid, w1, w2, cfg, first_step,
+                     make_halo_fill(cfg))

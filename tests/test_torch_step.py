@@ -1,0 +1,151 @@
+"""The port's Filament step end to end on the CPU, in float64:
+
+(a) its setup against roms_tpu.cases.filament.setup, every state and grid
+    field at 1e-13;
+(b) three steps of a small Filament against roms_tpu.stepper.step, every
+    state field at atol 5e-11 * max(1, max|ref|) (the bound of
+    tests/test_pallas_tracer.py:test_full_step_matches_jnp; sums and
+    cumulative sums run in another order than XLA's);
+(c) the 20-step Filament at 64x64x32 through the port's driver.run
+    against tests/data/filament_oracle.txt at the rtols of
+    tests/test_filament_regression.py;
+(d) a fresh interpreter runs a step of the port with neither jax nor
+    flax imported, and of roms_tpu only its host-side config, monitor
+    and weights modules;
+(e) roms_tpu_torch.profile_step reads every layer of a tiny step and
+    puts the layers back; chip_smoke.py fails with no CUDA device.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from roms_tpu.cases import filament as jfilament
+from roms_tpu.ops.weights import set_weights
+from roms_tpu.stepper import step as jstep
+
+from roms_tpu_torch import bridge, profile_step
+from roms_tpu_torch.cases import filament as tfilament
+from roms_tpu_torch.driver import run
+from roms_tpu_torch.stepper import step as tstep
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORACLE = os.path.join(ROOT, "tests", "data", "filament_oracle.txt")
+F64 = torch.float64
+
+
+def _fields(x):
+    return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)
+            if getattr(x, f.name) is not None}
+
+
+def _np_tree(x):
+    """A JAX pytree dataclass as the dict of numpy arrays bridge takes."""
+    return {f.name: (None if getattr(x, f.name) is None
+                     else np.asarray(getattr(x, f.name)))
+            for f in dataclasses.fields(x)}
+
+
+@pytest.fixture(scope="module")
+def small():
+    cfg = jfilament.config().replace(nx=32, ny=24, nz=8)
+    return cfg, jfilament.setup(cfg)
+
+
+def test_setup_matches_jax(small):
+    cfg, (jg, jst, jfrc) = small
+    tg, tst, tfrc = tfilament.setup(cfg, dtype=F64, device="cpu")
+    assert tfilament.config() == jfilament.config()
+    for jx, tx in ((jg, tg), (jst, tst), (jfrc, tfrc)):
+        tf = _fields(tx)
+        jf = _fields(jx)
+        assert set(tf) == set(jf)
+        for name, a in jf.items():
+            b = bridge.to_numpy(tf[name])
+            np.testing.assert_allclose(b, np.asarray(a), rtol=1e-13,
+                                       atol=1e-13, err_msg=name)
+
+
+def test_three_steps_match_jax(small):
+    cfg, (jg, jst, jfrc) = small
+    tg = bridge.grid_from_numpy(_np_tree(jg), dtype=F64, device="cpu")
+    tst = bridge.state_from_numpy(_np_tree(jst), dtype=F64, device="cpu")
+    tfrc = bridge.forcing_from_numpy(_np_tree(jfrc), dtype=F64, device="cpu")
+    w1, w2, _ = set_weights(cfg.ndtfast)
+    jw1, jw2 = jnp.asarray(w1), jnp.asarray(w2)
+    for i in range(3):
+        jst = jstep(jst, jfrc, jg, jw1, jw2, cfg, first_step=(i == 0))
+        tst = tstep(tst, tfrc, tg, w1, w2, cfg, first_step=(i == 0))
+    got = bridge.to_numpy(tst)
+    for name, a in _fields(jst).items():
+        a = np.asarray(a)
+        scale = max(1.0, float(np.abs(a).max()))
+        np.testing.assert_allclose(got[name], a, rtol=0, atol=5e-11 * scale,
+                                   err_msg=name)
+
+
+def test_twenty_step_oracle():
+    cfg = tfilament.config(ntimes=20)
+    grid, st, frc = tfilament.setup(cfg, dtype=F64, device="cpu")
+    _, rows = run(grid, st, frc, cfg, nsteps=20)
+    oracle = np.loadtxt(ORACLE)
+    assert rows.shape == oracle.shape
+    assert np.allclose(rows[0, 1:4], oracle[0, 1:4], rtol=1e-11)
+    for col, rtol in ((1, 1e-9), (2, 1e-8), (3, 1e-9)):
+        np.testing.assert_allclose(rows[:, col], oracle[:, col], rtol=rtol,
+                                   err_msg=f"diagnostics column {col}")
+    np.testing.assert_allclose(rows[:, 4], 0.0, atol=1e-12)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, torch\n"
+        "from roms_tpu_torch.cases import filament\n"
+        "from roms_tpu_torch.driver import run\n"
+        "cfg = filament.config().replace(nx=8, ny=8, nz=4, ndtfast=4)\n"
+        "g, s, f = filament.setup(cfg, dtype=torch.float64, device='cpu')\n"
+        "s, rows = run(g, s, f, cfg, nsteps=1)\n"
+        "assert rows.shape == (2, 5)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax')]\n"
+        "assert not bad, bad\n"
+        "host = {'roms_tpu', 'roms_tpu.config', 'roms_tpu.monitor', "
+        "'roms_tpu.ops', 'roms_tpu.ops.weights'}\n"
+        "ref = {m for m in sys.modules if m.split('.')[0] == 'roms_tpu'}\n"
+        "assert ref <= host, sorted(ref - host)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_profile_step_reads_every_layer():
+    cfg = tfilament.config().replace(nx=16, ny=12, nz=4, ndtfast=6)
+    before = [getattr(m, n) for m, n in profile_step.LAYERS]
+    out = profile_step.profile(cfg, torch.device("cpu"), dtype=F64,
+                               say=lambda *a: None)
+    assert [getattr(m, n) for m, n in profile_step.LAYERS] == before
+    assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS}
+    assert len(out["wall_ms"]) == profile_step.WALL_WINDOWS
+    assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
+
+
+def test_chip_smoke_fails_without_cuda():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
