@@ -3,31 +3,48 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout and
-drives its main path, the Filament baroclinic step, through
-`roms_tpu_torch.driver.run`, in phases; each prints its own lines and the
-first failure raises, so the exit code is nonzero:
+Builds the port's three CUDA kernels from the sources in this checkout
+and drives its main paths through `roms_tpu_torch.driver.run`, in phases;
+each prints its own lines and the first failure raises, so the exit code
+is nonzero:
 
-  0. device: a CUDA device is required; prints its name and
-     `nvidia-smi` name/power limit; TF32 off.
-  1. build: nvcc builds both kernels for sm_90a into build/.
+  0. device: a CUDA device is required; prints its name and the
+     `nvidia-smi` name/power limit line; TF32 off.
+  1. build: nvcc builds the three kernels for sm_90a, one process per
+     source, all started together; prints each kernel's registers and
+     spills (`-Xptxas -v`).
   2. kernel vs plain: each kernel against its plain PyTorch version on the
-     card, on the random-input harnesses of tests/test_pallas_tracer.py and
-     tests/test_pallas_solve.py, in float64 (rtol = atol = 1e-12) and
-     float32 (rtol 1e-5, atol 1e-5*max|ref|).
+     card, on the random-input harnesses of tests/test_pallas_tracer.py,
+     tests/test_pallas_solve.py and tests/test_pallas_kpp.py, in float64
+     (rtol = atol = 1e-12) and float32 (rtol 1e-5, atol 1e-5*max|ref|).
   3. oracle: 20 Filament steps at 64x64x32 in float64 against
-     tests/data/filament_oracle.txt, both kernels launched.
-  4. full width: Filament at 512x256x60 in float32, 2 warm-up + 10 timed
-     steps, all finite; each kernel timed against its plain version at
-     that shape with CUDA events.
+     tests/data/filament_oracle.txt, tracer and solve kernels launched.
+  4. production in float64: bench_production at 48x32x16, nt=4, 3 steps
+     on the card (all three kernels launched) against the same 3 steps on
+     the CPU (plain versions), atol 5e-11*max(1, max|ref|) per state field
+     (1e-8 for the ill-conditioned we, akv, akt): the tolerances
+     bench_production.STEP_TOL/CONDITIONED_TOL that
+     tests/test_torch_production.py holds the port to.
+  5. Filament full width: 512x256x60 float32, 2 warm-up + 10 timed steps,
+     all finite; the tracer and solve kernels timed against their plain
+     versions at that shape with CUDA events.
+  6. production full width: bench_production at 384x192x60, nt=34,
+     float32 (bench.py:66), 2 warm-up + 10 timed steps, all finite, 2 KPP,
+     2 tracer and 4 solve launches a step; each kernel timed against its
+     plain version at that shape; peak device memory.
+  7. the reference's default size: bench_production at 920x480x60, nt=34,
+     float32, 1 warm-up + 2 timed steps, all finite; peak device memory.
 
-The line before the last is a JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.  Imports the port, torch and numpy:
-nothing of JAX and nothing of the JAX package directly.
+Every phase that drives a path sets the kernels' launch counts to 0 just
+before it and reads them just after.  The line before the last is a JSON
+object {"kernels": [...]} whose launches and times come from phase 6; the
+last line is {"ok": true, "device": {...}}.  Imports the port, torch and
+numpy: nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +58,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(HERE, "tests", "data", "filament_oracle.txt")
 
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
+# the card's published peaks (H100 SXM data sheet): device memory, and
+# arithmetic outside the tensor cores by type
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+STATE = ("zeta", "ubar", "vbar", "u", "v", "t", "hz", "rho")
 
 
 def say(*a):
@@ -61,16 +83,22 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     say(f"[0 device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
-    say(f"[0 device] nvidia-smi: {smi}")
+    say(smi)
     return torch.device("cuda", 0), name
 
 
 # ------------------------------------------------------------------ phase 1
 def phase_build():
     from roms_tpu_torch.ops import _build
-    path, secs = _build.build()
+    path, secs, log = _build.build()
     _build.library()
     say(f"[1 build] nvcc {secs:.1f} s -> {os.path.relpath(path, HERE)}")
+    kernel = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("registers" in line or "spill" in line):
+            say(f"[1 build]   {kernel[:60]}: {line.strip()}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -112,22 +140,54 @@ def tracer_case(name, dtype, device):
     return cfg, args, kw
 
 
+def kpp_case(name, first_step, dtype, device):
+    """(cfg, positional args) of one vmix update on the random harness of
+    tests/test_pallas_kpp.py."""
+    from types import SimpleNamespace
+    from roms_tpu_torch.ops import _harness
+    kw = {"salinity": {}, "no_salinity": dict(salinity=False),
+          "no_mask": dict(masking=False, seed=3),
+          "periodic": dict(ew_periodic=True, ns_periodic=True, seed=5),
+          "ragged": RAGGED}[name]
+    cfg, d = _harness.kpp_inputs(**kw)
+    x = on_card(d, dtype, device)
+    grid = SimpleNamespace(f=x["f"], rmask=x["rmask"], umask=x["umask"],
+                           vmask=x["vmask"], own_w=None, own_e=None,
+                           own_s=None, own_n=None)
+    state = SimpleNamespace(swrf=x["swrf"], hbls=x["hbls"], hbbl=x["hbbl"])
+    forcing = SimpleNamespace(stflx=x["stflx"], srflx=x["srflx"],
+                              sustr=x["sustr"], svstr=x["svstr"])
+    return cfg, (state, x["u"], x["v"], x["t"], x["bvf"], x["z_r"],
+                 x["z_w"], x["hz"], forcing, grid, cfg, first_step)
+
+
 TRACER_CASES = ("corr_upstream3", "corr_centered4", "corr_akima",
                 "pred_nonperiodic", "pred_periodic", "corr_ragged",
                 "corr_mix")
 SOLVE_CASES = (("drag", {}), ("no_drag", {}), ("drag_ragged", RAGGED))
+KPP_CASES = (("salinity", True), ("salinity", False), ("no_salinity", True),
+             ("no_salinity", False), ("no_mask", False),
+             ("periodic", False), ("ragged", False))
 
 
-def compare(got, ref, dtype, periodic, what):
-    """Max abs error; raises beyond the dtype's tolerance.  Off a fully
-    periodic grid the outermost ghost lines are excluded (the rule of
-    tests/test_pallas_tracer.py:_close)."""
+def compare(got, ref, dtype, periodic, what, floor=None):
+    """Max abs error over a tensor or a tuple of tensors; raises beyond
+    the dtype's tolerance.  Off a fully periodic grid the outermost ghost
+    lines are excluded (the rule of tests/test_pallas_tracer.py:_close).
+    floor: the plain version's own round-off (see `roundoff_floor`); the
+    absolute tolerance is at least four times it."""
+    if isinstance(got, tuple):
+        return max(compare(g, r, dtype, periodic, f"{what}.{n}",
+                           None if floor is None else floor[n])
+                   for g, r, n in zip(got, ref, ref._fields))
     sl = (Ellipsis,) if periodic else (Ellipsis, slice(1, -1), slice(1, -1))
     g = got[sl].double()
     r = ref[sl].double()
     rtol, atol = TOL[dtype]
     if dtype == torch.float32:
         atol = atol * float(r.abs().max())
+    if floor is not None:
+        atol = max(atol, 4.0 * floor)
     err = (g - r).abs()
     bad = err > atol + rtol * r.abs()
     if not torch.isfinite(g).all() or bool(bad.any()):
@@ -137,7 +197,7 @@ def compare(got, ref, dtype, periodic, what):
 
 
 def phase_kernels(device):
-    from roms_tpu_torch.ops import _harness, cuda_solve, cuda_tracer
+    from roms_tpu_torch.ops import _harness, cuda_kpp, cuda_solve, cuda_tracer
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         for name in TRACER_CASES:
@@ -162,28 +222,49 @@ def phase_kernels(device):
                           f"momentum_solve {name} {tag}")
             say(f"[2 kernels] momentum_solve {name:11s}    {tag}: "
                 f"max abs err {err:.3e}")
+        for name, first in KPP_CASES:
+            cfg, args = kpp_case(name, first, dtype, device)
+            got = cuda_kpp.vmix_update(*args)
+            ref = cuda_kpp.vmix_update_plain(*args)
+            torch.cuda.synchronize()
+            # the kernel reproduces the ghost lines too: whole arrays
+            err = compare(got, ref, dtype, True,
+                          f"kpp_vmix {name} first_step={first} {tag}")
+            say(f"[2 kernels] kpp_vmix {name:11s} first_step={first!s:5s} "
+                f"{tag}: max abs err {err:.3e}")
 
 
-# ------------------------------------------------------------------ phase 3
+# ------------------------------------------------------------------ counts
+def _wrappers():
+    from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer
+    return (cuda_tracer.tracer_stage, cuda_solve.momentum_implicit,
+            cuda_kpp.vmix_update)
+
+
 def reset_counts():
-    from roms_tpu_torch.ops import cuda_solve, cuda_tracer
-    cuda_tracer.tracer_stage.launches = 0
-    cuda_solve.momentum_implicit.launches = 0
+    for w in _wrappers():
+        w.launches = 0
 
 
 def read_counts():
-    from roms_tpu_torch.ops import cuda_solve, cuda_tracer
-    return (cuda_tracer.tracer_stage.launches,
-            cuda_solve.momentum_implicit.launches)
+    """Launches of (tracer, solve, kpp) since the last reset."""
+    return tuple(w.launches for w in _wrappers())
 
 
-def check_counts(counts, nsteps, what):
-    expected = (2 * nsteps, 4 * nsteps)
+def check_counts(counts, nsteps, kpp, what):
+    expected = (2 * nsteps, 4 * nsteps, 2 * nsteps if kpp else 0)
     if counts != expected:
-        raise AssertionError(f"{what}: kernel launches (tracer, solve) = "
-                             f"{counts}, expected {expected}")
+        raise AssertionError(f"{what}: kernel launches (tracer, solve, kpp) "
+                             f"= {counts}, expected {expected}")
 
 
+def check_finite(st, what):
+    for name in STATE:
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"{what}: state.{name} is not finite")
+
+
+# ------------------------------------------------------------------ phase 3
 def phase_oracle(device):
     from roms_tpu_torch.cases import filament
     from roms_tpu_torch.driver import run
@@ -193,7 +274,7 @@ def phase_oracle(device):
     _, rows = run(grid, st, frc, cfg, nsteps=20)
     torch.cuda.synchronize()
     counts = read_counts()
-    check_counts(counts, 20, "oracle run")
+    check_counts(counts, 20, False, "oracle run")
     oracle = np.loadtxt(ORACLE)
     if rows.shape != oracle.shape:
         raise AssertionError(f"oracle: {rows.shape} rows vs {oracle.shape}")
@@ -216,8 +297,48 @@ def phase_oracle(device):
 
 
 # ------------------------------------------------------------------ phase 4
+def phase_production_f64(device):
+    from roms_tpu_torch import bridge
+    from roms_tpu_torch.cases import bench_production
+    from roms_tpu_torch.driver import run
+    cfg = bench_production.config(nx=48, ny=32, nz=16, nt=4)
+    nsteps = 3
+    out = {}
+    for where in ("cpu", device):
+        grid, st, frc = bench_production.setup(cfg, dtype=torch.float64,
+                                               device=where)
+        reset_counts()
+        st, _ = run(grid, st, frc, cfg, nsteps=nsteps, collect_diag=False)
+        if where != "cpu":
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check_counts(counts, nsteps, True, "production f64 run")
+        out[str(where)] = bridge.to_numpy(st)
+    ref, got = out["cpu"], out[str(device)]
+    loose = bench_production.CONDITIONED_TOL
+    worst = {}
+    for name, a in ref.items():
+        if a is None or isinstance(a, dict):
+            continue
+        scale = max(1.0, float(np.abs(a).max()))
+        err = float(np.abs(got[name] - a).max()) / scale
+        worst[name] = err
+        if not np.isfinite(got[name]).all() or \
+                err > loose.get(name, bench_production.STEP_TOL):
+            raise AssertionError(f"production f64: state.{name} on the "
+                                 f"card differs from the CPU by {err:.3e} "
+                                 f"* max(1, max|ref|)")
+    main = max(v for k, v in worst.items() if k not in loose)
+    say(f"[4 production f64] 48x32x16 nt=4, {nsteps} steps, card vs CPU: "
+        f"max err / max(1, max|ref|) {main:.3e} over the state, "
+        + ", ".join(f"{k} {worst[k]:.3e}" for k in loose)
+        + f"; launches tracer {counts[0]}, solve {counts[1]}, "
+        f"kpp {counts[2]}")
+
+
+# ------------------------------------------------------------------ timing
 def time_ms(fn, reps=20):
-    """Median milliseconds of fn() over reps launches, CUDA events."""
+    """Milliseconds of fn() for each of reps launches, CUDA events."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -232,12 +353,37 @@ def time_ms(fn, reps=20):
     return ts
 
 
-def kernel_vs_plain(kernel, plain, dtype, reps=20):
+def promoted(x):
+    """x with every floating tensor in float64, dataclasses field by
+    field."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: promoted(getattr(x, f.name))
+            for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)
+            or dataclasses.is_dataclass(getattr(x, f.name))})
+    return x
+
+
+def roundoff_floor(plain, args):
+    """{field: max |plain(args) - plain(args in float64)|}: how far the
+    plain float32 version itself sits from the float64 answer on the same
+    inputs."""
+    ref32 = plain(*args)
+    ref64 = plain(*[promoted(a) for a in args])
+    return {n: float((getattr(ref32, n).double() - getattr(ref64, n))
+                     .abs().max()) for n in ref32._fields}
+
+
+def kernel_vs_plain(kernel, plain, dtype, what, reps=20, floor=None):
     """Both versions on the same inputs: (max abs err, kernel ms, plain
-    ms), timed in turns plain, kernel, kernel, plain."""
+    ms), medians of launches timed in turns plain, kernel, kernel, plain.
+    The kernel reproduces every point, so whole arrays are compared."""
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
-    err = compare(got, ref, dtype, True, kernel.__name__)
+    err = compare(got, ref, dtype, True, what, floor)
     del got, ref
     p1 = time_ms(plain, reps)
     k1 = time_ms(kernel, reps)
@@ -246,18 +392,110 @@ def kernel_vs_plain(kernel, plain, dtype, reps=20):
     return err, float(np.median(k1 + k2)), float(np.median(p1 + p2))
 
 
-def phase_full_width(device):
-    from roms_tpu_torch.cases import filament
-    from roms_tpu_torch.driver import run
-    from roms_tpu_torch.ops import cuda_solve, cuda_tracer, vmix
+def bound(nbytes, ops, dtype):
+    """(bound ms, 'bytes' or 'operations'): the larger of the compulsory
+    bytes that the wrapper counted for its last launch (each distinct
+    input read once, each output written once) over the card's memory rate
+    and `ops` over its peak arithmetic rate."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    t_ops = 1e3 * ops / PEAK_OPS[dtype]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_timings(grid, st, frc, cfg, what, counts):
+    """Each kernel of the step against its plain version on the state of a
+    full-width run, at the main path's shapes; returns the JSON rows of the
+    kernels the configuration runs."""
+    from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer, eos, vmix
     from roms_tpu_torch.ops.kinematics import hz_u
     from roms_tpu_torch.parallel.halo import shift
+    dtype = st.t.dtype
+    nt, nz, jy, ix = st.t.shape
+    col = jy * ix
+    rows = []
+    pmn = grid.pm * grid.pn
+    mix = None
+    if cfg.ts_dif2 and cfg.tnu2 != 0.0:
+        mix = {"diff2": torch.full((nt, jy, ix), cfg.tnu2, dtype=dtype,
+                                   device=st.t.device),
+               "pmon_u": grid.pmon_u, "pnom_v": grid.pnom_v}
+    tr_args = (st.t, st.t_prev, st.flx_u, st.flx_v, st.hz, st.hz, st.we,
+               st.wi, st.akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+               cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr")
+    tr_kw = dict(stflx=frc.stflx, mix=mix)
+    # lower count of arithmetic per (tracer, level, column): flux,
+    # divergence, spline and Thomas sweeps
+    tr_ops = 40 * nt * nz * col
 
-    nx, ny, nz, warm, nsteps = 512, 256, 60, 2, 10      # bench.py:71-74
-    cfg = filament.config().replace(nx=nx, ny=ny, nz=nz)
-    grid, st, frc = filament.setup(cfg, dtype=torch.float32, device=device)
+    hzu = hz_u(st.hz)
+    rd = vmix.bottom_drag(st.u, st.v, st.hz, cfg)
+    dc0 = cfg.dt * 0.25 * (grid.pm + shift(grid.pm, 0, -1)) * (
+        grid.pn + shift(grid.pn, 0, -1))
+    so_args = (hzu * st.u, hzu, 0.5 * (st.akv + shift(st.akv, 0, -1)),
+               0.5 * (st.wi + shift(st.wi, 0, -1)), dc0, cfg.dt, frc.sustr,
+               cfg)
+    so_kw = dict(bottom_drag_coeff=0.5 * (rd + shift(rd, 0, -1)))
+    so_ops = 10 * nz * col
+
+    cases = [("tracer_stage", cuda_tracer.tracer_stage,
+              cuda_tracer.tracer_stage_plain, tr_args, tr_kw, tr_ops,
+              "roms_tpu_torch/csrc/tracer_stage.cu",
+              "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
+             ("momentum_solve", cuda_solve.momentum_implicit,
+              cuda_solve.momentum_implicit_plain, so_args, so_kw, so_ops,
+              "roms_tpu_torch/csrc/momentum_solve.cu",
+              "roms_tpu/ops/pallas_solve.py:66", counts[1])]
+    if cfg.lmd_kpp:
+        bvf = eos.rho_eos(st.t, st.z_r, st.z_w, st.hz, grid.rmask, cfg,
+                          need_bvf=True).bvf
+        kp_args = (st, st.u, st.v, st.t, bvf, st.z_r, st.z_w, st.hz, frc,
+                   grid, cfg, False)
+        # lower count per (level, column): Ri, smoother, wscale, profiles
+        kp_ops = 100 * nz * col
+        cases.append(("kpp_vmix", cuda_kpp.vmix_update,
+                      cuda_kpp.vmix_update_plain, kp_args, {}, kp_ops,
+                      "roms_tpu_torch/csrc/kpp_vmix.cu",
+                      "roms_tpu/ops/pallas_kpp.py:445", counts[2]))
+    for name, kern, plain, args, kw, ops, src, repl, launches in cases:
+        def k(kern=kern, args=args, kw=kw):
+            return kern(*args, **kw)
+
+        def p(plain=plain, args=args, kw=kw):
+            return plain(*args, **kw)
+
+        floor, note = None, ""
+        if name == "kpp_vmix" and dtype == torch.float32:
+            # the Richardson number divides by the square of a shear that
+            # is a small difference of nearly equal velocities, so float32
+            # round-off in either version is amplified: the tolerance
+            # grows to four times the plain version's own distance from
+            # float64 on these inputs
+            floor = roundoff_floor(plain, args)
+            note = (", plain f32 vs f64 " + ", ".join(
+                f"{n} {v:.3e}" for n, v in floor.items()))
+        err, k_ms, p_ms = kernel_vs_plain(k, p, dtype, f"{what} {name}",
+                                          floor=floor)
+        b_ms, b_by = bound(kern.last_bytes, ops, dtype)
+        say(f"[{what}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+            f"(medians of 40 CUDA-event launches each), bound {b_ms:.4f} ms "
+            f"({b_by}), max abs err {err:.3e}{note}")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": repl, "launches": launches,
+                     "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    return rows
+
+
+def full_width(case, cfg, device, warm, nsteps, what, timings):
+    """Drive `case` at `cfg` in float32 through driver.run: warm-up steps,
+    then timed steps between two synchronizes; checks finiteness and the
+    launch counts; with `timings`, returns the kernels' JSON rows."""
+    from roms_tpu_torch.driver import run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grid, st, frc = case.setup(cfg, dtype=torch.float32, device=device)
     torch.cuda.synchronize()
-
     clock = {}
 
     def mark(_, iic):
@@ -269,72 +507,56 @@ def phase_full_width(device):
     reset_counts()
     st, _ = run(grid, st, frc, cfg, nsteps=warm + nsteps,
                 collect_diag=False, step_hook=mark)
-    wall = clock[warm + nsteps] - clock[warm]
+    torch.cuda.synchronize()
     counts = read_counts()
-    check_counts(counts, warm + nsteps, "full-width run")
-    for name in ("zeta", "ubar", "vbar", "u", "v", "t", "hz", "rho"):
-        if not bool(torch.isfinite(getattr(st, name)).all()):
-            raise AssertionError(f"full width: state.{name} is not finite")
-    ms = 1e3 * wall / nsteps
-    rate = nx * ny * nz * nsteps / wall
-    say(f"[4 full width] Filament {nx}x{ny}x{nz} f32: {ms:.3f} ms/step, "
-        f"{rate:.6e} gridpoint-steps/s over {nsteps} steps after {warm} "
-        f"warm-up; launches tracer {counts[0]}, solve {counts[1]}; "
-        f"state finite")
-
-    # each kernel against its plain version at the main path's shapes
-    pmn = grid.pm * grid.pn
-    tr_args = (st.t, st.t_prev, st.flx_u, st.flx_v, st.hz, st.hz, st.we,
-               st.wi, st.akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
-               cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr")
-    tr_kw = dict(stflx=frc.stflx)
-
-    def tracer_stage():
-        return cuda_tracer.tracer_stage(*tr_args, **tr_kw)
-
-    def tracer_plain():
-        return cuda_tracer.tracer_stage_plain(*tr_args, **tr_kw)
-
-    hzu = hz_u(st.hz)
-    rd = vmix.bottom_drag(st.u, st.v, st.hz, cfg)
-    dc0 = cfg.dt * 0.25 * (grid.pm + shift(grid.pm, 0, -1)) * (
-        grid.pn + shift(grid.pn, 0, -1))
-    so_args = (hzu * st.u, hzu, 0.5 * (st.akv + shift(st.akv, 0, -1)),
-               0.5 * (st.wi + shift(st.wi, 0, -1)), dc0, cfg.dt, frc.sustr,
-               cfg)
-    so_kw = dict(bottom_drag_coeff=0.5 * (rd + shift(rd, 0, -1)))
-
-    def momentum_solve():
-        return cuda_solve.momentum_implicit(*so_args, **so_kw)
-
-    def solve_plain():
-        return cuda_solve.momentum_implicit_plain(*so_args, **so_kw)
-
-    rows = []
-    for name, kern, plain, src, repl, launches in (
-            ("tracer_stage", tracer_stage, tracer_plain,
-             "roms_tpu_torch/csrc/tracer_stage.cu",
-             "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
-            ("momentum_solve", momentum_solve, solve_plain,
-             "roms_tpu_torch/csrc/momentum_solve.cu",
-             "roms_tpu/ops/pallas_solve.py:66", counts[1])):
-        err, k_ms, p_ms = kernel_vs_plain(kern, plain, torch.float32)
-        say(f"[4 full width] {name}: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms (median of 40 CUDA-event launches each), "
-            f"max abs err {err:.3e}")
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": launches,
-                     "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms})
+    check_counts(counts, warm + nsteps, cfg.lmd_kpp, what)
+    check_finite(st, what)
+    wall = clock[warm + nsteps] - clock[warm]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[{what}] {cfg.nx}x{cfg.ny}x{cfg.nz} nt={cfg.nt} f32: "
+        f"{1e3 * wall / nsteps:.3f} ms/step, "
+        f"{cfg.nx * cfg.ny * cfg.nz * nsteps / wall:.6e} gridpoint-steps/s "
+        f"over {nsteps} steps after {warm} warm-up; launches tracer "
+        f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}; state finite; "
+        f"peak device memory {peak:.3f} GiB")
+    rows = kernel_timings(grid, st, frc, cfg, what, counts) if timings \
+        else None
     return rows
+
+
+# ------------------------------------------------------------ phases 5-7
+def phase_filament_full_width(device):
+    from roms_tpu_torch.cases import filament
+    cfg = filament.config().replace(nx=512, ny=256, nz=60)  # bench.py:71-74
+    full_width(filament, cfg, device, 2, 10, "5 filament", True)
+
+
+def phase_production_full_width(device):
+    from roms_tpu_torch.cases import bench_production
+    cfg = bench_production.config(nx=384, ny=192, nz=60, nt=34)  # bench.py:66
+    return full_width(bench_production, cfg, device, 2, 10,
+                      "6 production", True)
+
+
+def phase_reference_size(device):
+    from roms_tpu_torch.cases import bench_production
+    cfg = bench_production.config(nx=920, ny=480, nz=60, nt=34)
+    full_width(bench_production, cfg, device, 1, 2, "7 production 920",
+               False)
 
 
 def main():
     from roms_tpu_torch.ops import _build  # noqa: F401  (fails off the repo)
+    t0 = time.perf_counter()
     device, name = phase_device()
     phase_build()
     phase_kernels(device)
     phase_oracle(device)
-    kernels = phase_full_width(device)
+    phase_production_f64(device)
+    phase_filament_full_width(device)
+    kernels = phase_production_full_width(device)
+    phase_reference_size(device)
+    say(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

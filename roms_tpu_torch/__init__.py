@@ -2,14 +2,17 @@
 
 A second package beside `roms_tpu` (the JAX reference, which stays as it
 is).  Module names mirror `roms_tpu`, so each port module sits where its
-counterpart does.  The port imports `torch` and never `jax`; it shares the
-host-only modules of `roms_tpu` that import neither (`roms_tpu.config`
-through `roms_tpu_torch.config`, `roms_tpu.ops.weights`,
-`roms_tpu.monitor`), so both packages take the same frozen `ModelConfig`.
+counterpart does.  The port imports `torch`, numpy and itself only: it
+keeps its own copies of the host modules it needs (`config.py`,
+`monitor.py`, `ops/weights.py`), and `bridge.config_from_dict` rebuilds a
+JAX package configuration as the port's `ModelConfig`.
 
-Scope of this slice: the doubly periodic baroclinic step of the Filament
-case (linear EOS, one tracer, no KPP) through `driver.run`, with the two
-TPU kernels on that path written by hand in CUDA for Hopper
-(`ops/cuda_tracer.py`, `ops/cuda_solve.py`, sources under `csrc/`).
-Everything the step does not carry raises `NotImplementedError`.
+Scope: the baroclinic step through `driver.run` for the Filament case
+(doubly periodic, linear EOS) and the production-physics case
+(`cases/bench_production.py`: nonlinear EOS, KPP, 34 tracers, land mask,
+curvilinear metrics, lateral viscosity and 4-side open boundaries), with
+the three TPU kernels of that step written by hand in CUDA for Hopper
+(`ops/cuda_tracer.py`, `ops/cuda_solve.py`, `ops/cuda_kpp.py`, sources
+under `csrc/`).  Every feature the step does not carry raises
+`NotImplementedError`.
 """

@@ -1,21 +1,32 @@
-"""Carry grids, states and forcing between the two packages through
-numpy.
+"""Carry configurations, grids, states and forcing between the two
+packages through plain Python and numpy.
 
 The JAX package's pytrees go in as dicts of numpy arrays, one entry per
-dataclass field (None for an absent optional field), and come back out
-of the port the same way.  This is how the tests feed both packages
-identical inputs.
+dataclass field (None for an absent optional field; `forcing.bry` a
+nested dict of the same kind), and come back out of the port the same
+way.  A configuration goes in as `dataclasses.asdict` of the JAX
+package's `ModelConfig`.  This is how the tests feed both packages
+identical inputs; nothing here imports the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from enum import Enum
 
 import numpy as np
 import torch
 
+from roms_tpu_torch.config import AdvScheme, ModelConfig
 from roms_tpu_torch.grid import Grid
-from roms_tpu_torch.state import Forcing, OceanState
+from roms_tpu_torch.state import BoundaryData, Forcing, OceanState
+
+
+def config_from_dict(d: dict) -> ModelConfig:
+    """The port's ModelConfig from `dataclasses.asdict` of the JAX
+    package's: every field by name, `AdvScheme` members by name."""
+    return ModelConfig(**{k: AdvScheme[v.name] if isinstance(v, Enum) else v
+                          for k, v in d.items()})
 
 
 def _tensor(x, dtype, device):
@@ -50,11 +61,16 @@ def state_from_numpy(d: dict, *, dtype: torch.dtype,
 
 def forcing_from_numpy(d: dict, *, dtype: torch.dtype,
                        device: torch.device) -> Forcing:
-    for name in ("bry", "cdr", "bgc"):
+    for name in ("cdr", "bgc"):
         if d.get(name) is not None:
             raise NotImplementedError(f"forcing.{name} is not ported yet "
                                       "(ROADMAP Queue 1)")
-    return _from_numpy(Forcing, d, dtype, device)
+    frc = _from_numpy(Forcing, {k: v for k, v in d.items() if k != "bry"},
+                      dtype, device)
+    if d.get("bry") is not None:
+        frc = frc.replace(bry=_from_numpy(BoundaryData, d["bry"], dtype,
+                                          device))
+    return frc
 
 
 def to_numpy(x):

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from roms_tpu_torch import vcoord
+from roms_tpu_torch.cases import resolve_device
 from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.grid import build_grid
 from roms_tpu_torch.ops import kinematics
@@ -52,14 +53,15 @@ def config(ntimes: int = 20) -> ModelConfig:
 
 
 def setup(cfg: ModelConfig | None = None, dtype: torch.dtype = torch.float64,
-          device: torch.device | str = "cpu"):
+          device: torch.device | str = "cuda"):
     """Build (grid, state, forcing) for the Filament case, following the
     reference init sequence (reference: main.F:86-321): analytic grid ->
     rest-state depths -> ana_init -> set_depth with the analytic zeta ->
-    set_HUV -> omega -> rho_eos."""
+    set_HUV -> omega -> rho_eos.  Builds on the card unless `device`
+    says otherwise; raises where there is no CUDA device."""
     if cfg is None:
         cfg = config()
-    device = torch.device(device)
+    device = resolve_device(device)
     h = cfg.halo
     npdt = np.float64
     jy, ix = cfg.ny + 2 * h, cfg.nx + 2 * h

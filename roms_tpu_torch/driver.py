@@ -5,10 +5,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from roms_tpu.monitor import check_blowup
-from roms_tpu.ops.weights import set_weights
 from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.diag import compute_diag
+from roms_tpu_torch.monitor import check_blowup
+from roms_tpu_torch.ops.weights import set_weights
 from roms_tpu_torch.stepper import step
 
 

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 `nvcc` compiles the `.cu` files under `roms_tpu_torch/csrc/` for Hopper
-(`sm_90a`) into one shared library with a plain C interface, at first
-use, into `build/` at the repository root.  The library's name carries a
-hash of the sources and flags, so a stale library is never loaded.  It is
+(`sm_90a`), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, at first use,
+into `build/` at the repository root.  The library's name carries a hash
+of the sources and flags, so a stale library is never loaded.  It is
 bound with `ctypes`: every pointer and the CUDA stream go in as
-`c_void_p`, and each entry point returns `cudaGetLastError()`, which
-`check` turns into an exception.
+`c_void_p` (the KPP entry points take arrays of pointers, ints and
+doubles), and each entry point returns `cudaGetLastError()`, which
+`check` turns into an exception.  `-Xptxas -v` reports each kernel's
+registers and spills; `build` returns that log.
 
 Nothing here runs at import time: the CPU tests import every module on a
 host with no `nvcc`.
@@ -28,19 +31,23 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "roms_tpu_torch" / "csrc"
 BUILD = ROOT / "build"
-SOURCES = ("tracer_stage.cu", "momentum_solve.cu")
+SOURCES = ("tracer_stage.cu", "momentum_solve.cu", "kpp_vmix.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # argtypes of the C entry points (see csrc/): pointers, ints, doubles, stream
 _TRACER_ARGS = [_PTR] * 19 + [_INT] * 15 + [_DBL] * 3 + [_PTR]
 _SOLVE_ARGS = [_PTR] * 9 + [_INT] * 3 + [_DBL] + [_PTR]
+_KPP_ARGS = [ctypes.POINTER(_PTR), ctypes.POINTER(_INT),
+             ctypes.POINTER(_DBL), _PTR]
 ENTRY_POINTS = {
     "roms_tracer_stage_f32": _TRACER_ARGS,
     "roms_tracer_stage_f64": _TRACER_ARGS,
     "roms_momentum_solve_f32": _SOLVE_ARGS,
     "roms_momentum_solve_f64": _SOLVE_ARGS,
+    "roms_kpp_vmix_f32": _KPP_ARGS,
+    "roms_kpp_vmix_f64": _KPP_ARGS,
 }
 
 
@@ -59,31 +66,40 @@ def library_path() -> Path:
     return BUILD / f"libroms_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
+def build() -> tuple[Path, float, str]:
     """Compile the kernels unless the library for these sources exists;
-    returns (path, seconds spent compiling)."""
+    returns (path, seconds spent compiling, nvcc's log)."""
     out = library_path()
     if out.exists():
-        return out, 0.0
+        return out, 0.0, ""
     BUILD.mkdir(exist_ok=True)
-    tmpdir = BUILD / "tmp"
-    tmpdir.mkdir(exist_ok=True)
-    partial = out.with_suffix(f".{os.getpid()}.part")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True,
-                         env={**os.environ, "TMPDIR": str(tmpdir)})
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(CSRC / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    for s, p, log in zip(SOURCES, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log}")
+    partial = out.with_suffix(f".{os.getpid()}.part")
+    res = subprocess.run([_nvcc(), "-shared", "-o", str(partial),
+                          *map(str, objs)], capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(partial, out)
-    return out, time.perf_counter() - t0
+    for o in objs:
+        o.unlink()
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    path, _ = build()
+    path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
@@ -114,6 +130,17 @@ def check_inputs(shapes: dict, ref):
                              f"{tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel needs a contiguous tensor")
+
+
+def compulsory_bytes(inputs, outputs) -> int:
+    """Bytes a launch must move: each distinct input read once, each output
+    written once (None entries are absent inputs; scratch is left out)."""
+    seen, n = set(), 0
+    for t in (*inputs, *outputs):
+        if t is not None and (t.data_ptr(), t.numel()) not in seen:
+            seen.add((t.data_ptr(), t.numel()))
+            n += t.numel() * t.element_size()
+    return n
 
 
 def ptr(t) -> int | None:

@@ -3,7 +3,8 @@ PyTorch version (counterpart of roms_tpu/ops/pallas_solve.py).
 
 `momentum_implicit` launches `csrc/momentum_solve.cu` for a CUDA tensor
 and calls `momentum_implicit_plain` for a CPU tensor; any other device
-raises.  The plain version mirrors roms_tpu/ops/vmix.py:momentum_implicit
+raises.  Its `launches` counts the launches and `last_bytes` holds the
+compulsory bytes of the last one.  The plain version mirrors roms_tpu/ops/vmix.py:momentum_implicit
 (reference: pre_step3d4S.F:377-424 / step3d_uv1.F:146-206).
 """
 
@@ -47,10 +48,14 @@ def momentum_implicit(rhs, hz_face, akv_face, wi_face, dc0, dtau, sstr,
              torch.cuda.current_stream(rhs.device).cuda_stream)
     _build.check(err, "momentum_solve")
     momentum_implicit.launches += 1
+    momentum_implicit.last_bytes = _build.compulsory_bytes(
+        (rhs, hz_face, akv_face, wi_face, dc0, sstr, bottom_drag_coeff),
+        (out,))
     return out
 
 
 momentum_implicit.launches = 0
+momentum_implicit.last_bytes = 0
 
 
 def momentum_implicit_plain(rhs, hz_face, akv_face, wi_face, dc0, dtau,

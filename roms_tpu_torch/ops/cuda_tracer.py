@@ -7,7 +7,9 @@ PyTorch version (counterpart of roms_tpu/ops/pallas_tracer.py).
                       [+ dtau*stflx at the surface] )  [+ t3dmix tendency]
 
 `tracer_stage` launches `csrc/tracer_stage.cu` for a CUDA tensor and calls
-`tracer_stage_plain` for a CPU tensor; any other device raises.  The
+`tracer_stage_plain` for a CPU tensor; any other device raises.  Its
+`launches` counts the launches and `last_bytes` holds the compulsory
+bytes of the last one.  The
 plain version composes the port's `advection` and `vmix` functions, as
 tests/test_pallas_tracer.py composes the JAX ones, plus the fused t3dmix
 tendency of the TPU kernel.
@@ -121,10 +123,14 @@ def tracer_stage(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
              torch.cuda.current_stream(tk.device).cuda_stream)
     _build.check(err, "tracer_stage")
     tracer_stage.launches += 1
+    tracer_stage.last_bytes = _build.compulsory_bytes(
+        (tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt[:imix], pmn, rmask,
+         umask, vmask, stflx, *mx.values()), (out,))
     return out
 
 
 tracer_stage.launches = 0
+tracer_stage.last_bytes = 0
 
 
 def tracer_stage_plain(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,

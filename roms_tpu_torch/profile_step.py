@@ -1,10 +1,12 @@
 """Where the time of one baroclinic step goes, on one CUDA device.
 
-    python3 -m roms_tpu_torch.profile_step
+    python3 -m roms_tpu_torch.profile_step [--case filament|production]
 
-Runs Filament at 512x256x60 in float32 (the shape of bench.py:71-74 and
-chip_smoke.py's phase 4) through `driver.run`, without diagnostics, and reads the
-step in three windows of one run, after 2 warm-up steps:
+Runs Filament at 512x256x60 (the shape of bench.py:71-74 and
+chip_smoke.py's phase 5) or the production-physics case at 384x192x60
+with nt=34 (bench.py:66, chip_smoke.py's phase 6) in float32 through
+`driver.run`, without diagnostics, and reads the step in three windows
+of one run, after 2 warm-up steps:
 
   wall    three windows of 5 steps, host clock between two
           synchronizes: ms/step as chip_smoke.py reads it;
@@ -13,8 +15,9 @@ step in three windows of one run, after 2 warm-up steps:
           the wall of the unprofiled windows) and the kernels that took
           most of it, by name;
   layers  2 steps with each layer of the step (fast loop, momentum
-          r.h.s., prsgrd, rho_eos, omega, set_huv/set_huv1, the two hand
-          kernels) bracketed by synchronizes.  The brackets take away the
+          r.h.s., prsgrd, rho_eos, omega, set_huv/set_huv1, visc3d, the
+          3D boundary conditions, the three hand kernels) bracketed by
+          synchronizes.  The brackets take away the
           overlap of host and device, so these steps are slower than the
           wall windows; the shares are what the layers weigh.
 
@@ -23,6 +26,7 @@ Each reading is a line of its own on stdout.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 from collections import defaultdict
@@ -30,21 +34,29 @@ from collections import defaultdict
 import torch
 
 from roms_tpu_torch import stepper
-from roms_tpu_torch.cases import filament
+from roms_tpu_torch.cases import bench_production, filament
 from roms_tpu_torch.driver import run
-from roms_tpu_torch.ops import (barotropic, cuda_solve, cuda_tracer, eos,
-                                kinematics, prsgrd)
+from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
+                                cuda_tracer, eos, hmix, kinematics, prsgrd)
 
 WARM, WALL_WINDOWS, WALL_STEPS, PROF_STEPS, LAYER_STEPS = 2, 3, 5, 2, 2
 TOP = 12    # kernels listed by name
 
-# (module, attribute) of each layer the step calls through a module name
+# (module, attribute) of each layer the step calls through a module name;
+# none is called from inside another (the 2D BCs run inside the fast loop
+# and are part of it)
 LAYERS = (
     (barotropic, "fast_loop"), (stepper, "_uv_rhs"), (prsgrd, "prsgrd"),
     (eos, "rho_eos"), (kinematics, "omega"), (kinematics, "set_huv"),
-    (kinematics, "set_huv1"), (cuda_tracer, "tracer_stage"),
-    (cuda_solve, "momentum_implicit"),
+    (kinematics, "set_huv1"), (hmix, "visc3d"), (bc, "u3dbc"),
+    (bc, "v3dbc"), (bc, "t3dbc"), (cuda_tracer, "tracer_stage"),
+    (cuda_solve, "momentum_implicit"), (cuda_kpp, "vmix_update"),
 )
+CASES = {
+    "filament": (filament, filament.config().replace(nx=512, ny=256, nz=60)),
+    "production": (bench_production,
+                   bench_production.config(nx=384, ny=192, nz=60, nt=34)),
+}
 
 
 def _sync(device):
@@ -87,9 +99,10 @@ def _device_kernels(prof):
     return kernels
 
 
-def profile(cfg, device, dtype=torch.float32, say=print):
-    """Run the three windows on Filament at `cfg`; returns the readings."""
-    grid, st, frc = filament.setup(cfg, dtype=dtype, device=device)
+def profile(cfg, device, dtype=torch.float32, say=print, case=filament):
+    """Run the three windows on `case` (a module of roms_tpu_torch.cases)
+    at `cfg`; returns the readings."""
+    grid, st, frc = case.setup(cfg, dtype=dtype, device=device)
     w_end = WARM + WALL_WINDOWS * WALL_STEPS
     p_end = w_end + PROF_STEPS
     l_end = p_end + LAYER_STEPS
@@ -119,13 +132,14 @@ def profile(cfg, device, dtype=torch.float32, say=print):
         if restore is not None:
             restore()
 
-    shape = f"{cfg.nx}x{cfg.ny}x{cfg.nz} {str(dtype)[6:]}"
+    shape = (f"{case.__name__.rsplit('.', 1)[-1]} {cfg.nx}x{cfg.ny}x{cfg.nz} "
+             f"nt={cfg.nt} {str(dtype)[6:]}")
     wall = []
     for w in range(WALL_WINDOWS):
         a = WARM + w * WALL_STEPS
         wall.append(1e3 * (marks[a + WALL_STEPS] - marks[a]) / WALL_STEPS)
     out["wall_ms"] = wall
-    say(f"[wall] Filament {shape}: ms/step over {WALL_WINDOWS} windows of "
+    say(f"[wall] {shape}: ms/step over {WALL_WINDOWS} windows of "
         f"{WALL_STEPS} steps: " + ", ".join(f"{x:.3f}" for x in wall))
 
     kernels = _device_kernels(prof)
@@ -162,13 +176,16 @@ def profile(cfg, device, dtype=torch.float32, say=print):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--case", choices=sorted(CASES), default="filament")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    cfg = filament.config().replace(nx=512, ny=256, nz=60)
-    profile(cfg, torch.device("cuda", 0))
+    case, cfg = CASES[args.case]
+    profile(cfg, torch.device("cuda", 0), case=case)
 
 
 if __name__ == "__main__":

@@ -30,7 +30,8 @@ class _Replace:
 @dataclass
 class BoundaryData(_Replace):
     """Open-boundary data, one slice per open edge (see
-    roms_tpu.state.BoundaryData); every field optional."""
+    roms_tpu.state.BoundaryData); every field optional.  ub_*: per-point
+    Orlanski binding velocities (cfg.ubind when None)."""
     zeta_west: Optional[torch.Tensor] = None
     zeta_east: Optional[torch.Tensor] = None
     zeta_south: Optional[torch.Tensor] = None
@@ -148,6 +149,28 @@ def zeros_state(cfg: ModelConfig, dtype: torch.dtype,
         iic=torch.zeros((), dtype=torch.int32, device=device),
         time=torch.zeros((), dtype=dtype, device=device),
     )
+
+
+def zero_boundary(cfg: ModelConfig, dtype: torch.dtype,
+                  device: torch.device) -> BoundaryData:
+    """Zero-valued boundary data on every open edge of `cfg`."""
+    h = cfg.halo
+    jy, ix = cfg.ny + 2 * h, cfg.nx + 2 * h
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    kw = {}
+    for edge, n in (("west", jy), ("east", jy), ("south", ix), ("north", ix)):
+        if not getattr(cfg, f"obc_{edge}"):
+            continue
+        kw[f"zeta_{edge}"] = z(n)
+        kw[f"ubar_{edge}"] = z(n)
+        kw[f"vbar_{edge}"] = z(n)
+        kw[f"u_{edge}"] = z(cfg.nz, n)
+        kw[f"v_{edge}"] = z(cfg.nz, n)
+        kw[f"t_{edge}"] = z(cfg.nt, cfg.nz, n)
+    return BoundaryData(**kw)
 
 
 def zero_forcing(cfg: ModelConfig, dtype: torch.dtype,

@@ -3,12 +3,12 @@ forward-backward barotropic sub-cycle (port of roms_tpu/stepper.py;
 reference: src/main.F:333-520, pre_step3d4S.F, step3d_uv1.F,
 step3d_uv2.F, step3d_t_ISO.F).
 
-The port keeps one tracer path and one momentum path, the kernels':
-both tracer stages go through `cuda_tracer.tracer_stage` and all four
-implicit momentum solves through `cuda_solve.momentum_implicit`, which
-launch the CUDA kernels on the card and run their plain versions on the
-CPU.  Every feature this slice does not carry raises NotImplementedError
-before any work is done.
+The port keeps one path per kernel: both tracer stages go through
+`cuda_tracer.tracer_stage`, all four implicit momentum solves through
+`cuda_solve.momentum_implicit` and, under LMD_KPP, both vertical-mixing
+updates through `cuda_kpp.vmix_update`; each launches its CUDA kernel on
+the card and runs its plain version on the CPU.  Every feature the port
+does not carry yet raises NotImplementedError before any work is done.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from roms_tpu_torch import vcoord
 from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.grid import Grid
 from roms_tpu_torch.ops import advection as adv
-from roms_tpu_torch.ops import barotropic, bc, cuda_solve, cuda_tracer, eos
-from roms_tpu_torch.ops import kinematics, vmix
+from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
+                                cuda_tracer, eos, hmix, kinematics, vmix)
 from roms_tpu_torch.ops import prsgrd as prsgrd_mod
 from roms_tpu_torch.ops.kinematics import hz_u, hz_v
 from roms_tpu_torch.parallel.halo import make_halo_fill, shift
@@ -30,9 +30,8 @@ AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
 
 
 def _unsupported(cfg: ModelConfig, forcing: Forcing, grid: Grid):
-    """Names of the enabled features this slice does not port."""
+    """Names of the enabled features the port does not carry yet."""
     checks = (
-        ("lmd_kpp", cfg.lmd_kpp),
         ("river_source", cfg.river_source),
         ("pipe_source", cfg.pipe_source),
         ("forcing.cdr", forcing.cdr is not None),
@@ -42,9 +41,6 @@ def _unsupported(cfg: ModelConfig, forcing: Forcing, grid: Grid):
         ("tracer_diagnostics", cfg.tracer_diagnostics),
         ("uv_diagnostics", cfg.uv_diagnostics),
         ("upscale_output", cfg.upscale_output),
-        ("visc2 (visc3d)", cfg.uv_vis2 and (cfg.visc2 != 0.0
-                                            or grid.visc2_r is not None)),
-        ("non-periodic axis", not cfg.fully_periodic),
         ("tracer stage scope", not cuda_tracer.usable(cfg)),
     )
     return [name for name, on in checks if on]
@@ -104,6 +100,15 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     om = kinematics.omega(flx_u, flx_v, zw_n, hz_n, forcing.swflx, grid,
                           dtau_o, cfg, forcing)
     we, wi = halo(om.we), halo(om.wi)
+
+    if cfg.lmd_kpp:
+        # lmd_vmix + lmd_kpp at time n (reference: main.F:408-410)
+        vm = cuda_kpp.vmix_update(state, state.u, state.v, state.t,
+                                  eos_n.bvf, zr_n, zw_n, hz_n, forcing, grid,
+                                  cfg, first_step)
+        akv, akt = halo(vm.akv), halo(vm.akt)
+        # (reference: lmd_kpp.F exchanges hbls/hbbl after smoothing)
+        hbls, hbbl = halo(vm.hbls), halo(vm.hbbl)
 
     ru_p, rv_p = prsgrd_mod.prsgrd(eos_n.rho, eos_n.rho1, eos_n.qp1,
                                    zr_n, zw_n, hz_n, grid, cfg,
@@ -179,6 +184,13 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     we, wi = halo(om.we), halo(om.wi)
     eos_h = eos.rho_eos(t_half, zr_n, zw_n, hz_n, grid.rmask, cfg,
                         need_bvf=cfg.lmd_kpp)
+    if cfg.lmd_kpp:
+        # at n+1/2, from the predictor's boundary layers (main.F:434-436)
+        vm = cuda_kpp.vmix_update(state.replace(hbls=hbls, hbbl=hbbl),
+                                  u_half, v_half, t_half, eos_h.bvf, zr_n,
+                                  zw_n, hz_n, forcing, grid, cfg, first_step)
+        akv, akt, ghat = halo(vm.akv), halo(vm.akt), vm.ghat
+        hbls, hbbl = halo(vm.hbls), halo(vm.hbbl)
     ru_p, rv_p = prsgrd_mod.prsgrd(eos_h.rho, eos_h.rho1, eos_h.qp1,
                                    zr_n, zw_n, hz_n, grid, cfg,
                                    ptide=forcing.ptide)
@@ -215,6 +227,17 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         forcing.sustr - rd_u * vel_u[0])
     rvfrc = torch.sum(rv, dim=0) + grid.dm_v * grid.dn_v * (
         forcing.svstr - rd_v * vel_v[0])
+
+    # visc3d: lateral harmonic viscosity, sponge-enhanced when grid.visc2_*
+    # are present (reference: src/visc3d_S.F, src/set_nudgcof.F)
+    if cfg.uv_vis2 and (cfg.visc2 != 0.0 or grid.visc2_r is not None):
+        du_v, dv_v, dru, drv = hmix.visc3d(state.u, state.v, hz_n, grid,
+                                           cfg, visc2_r=grid.visc2_r,
+                                           visc2_p=grid.visc2_p)
+        hzu_new = hzu_new + cfg.dt * du_v
+        hzv_new = hzv_new + cfg.dt * dv_v
+        rufrc = rufrc + dru
+        rvfrc = rvfrc + drv
 
     # ================= BAROTROPIC SUB-CYCLE (step2d_FB.F) ================
     fast = barotropic.fast_loop(

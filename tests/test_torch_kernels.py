@@ -17,10 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from roms_tpu.config import AdvScheme, ModelConfig
+from roms_tpu.config import AdvScheme
 from roms_tpu.ops import pallas_solve, pallas_tracer
 
+from roms_tpu_torch.config import AdvScheme as TAdvScheme
+from roms_tpu_torch.config import ModelConfig as TModelConfig
 from roms_tpu_torch.ops import _harness, cuda_solve, cuda_tracer
+
+from torch_helpers import jax_cfg
 
 torch.set_num_threads(1)
 
@@ -58,10 +62,11 @@ def _run_both(cfg, d, hz_b, scheme, dtau, c_tk, c_sec, apply_mask, mode,
         jkw["mix"] = {k: jnp.asarray(v, jnp.float64) for k, v in mix.items()}
         tkw["mix"] = {k: torch.as_tensor(np.array(v), dtype=torch.float64)
                       for k, v in mix.items()}
-    args = (cfg, scheme, dtau, c_tk, c_sec, apply_mask, mode)
-    ref = pallas_tracer.tracer_stage(*j, *args, **jkw)
+    args = (dtau, c_tk, c_sec, apply_mask, mode)
+    ref = pallas_tracer.tracer_stage(*j, jax_cfg(cfg), scheme, *args, **jkw)
     before = cuda_tracer.tracer_stage.launches
-    got = cuda_tracer.tracer_stage(*t, *args, **tkw)
+    got = cuda_tracer.tracer_stage(*t, cfg, TAdvScheme[scheme.name], *args,
+                                   **tkw)
     assert cuda_tracer.tracer_stage.launches == before   # CPU: no launch
     return got.numpy(), np.asarray(ref)
 
@@ -113,7 +118,7 @@ def test_mix_is_a_corrector_option():
         cuda_tracer.tracer_stage(
             t["tk"], t["t_sec"], t["flx_u"], t["flx_v"], t["hz_n"],
             t["hz_d"], t["we"], t["wi"], t["akt"], t["pmn"], t["rmask"],
-            t["umask"], t["vmask"], cfg, AdvScheme.CENTERED4, 50.0, 1.0,
+            t["umask"], t["vmask"], cfg, TAdvScheme.CENTERED4, 50.0, 1.0,
             0.0, False, "pred",
             mix={"diff2": t["stflx"], "pmon_u": t["pmn"], "pnom_v": t["pmn"]})
 
@@ -127,7 +132,7 @@ def test_momentum_solve_matches_pallas(drag):
     jd, td = _both("rd", d)
     js, ts = _both("sstr", d)
     ref = pallas_solve.momentum_implicit(
-        *j, 200.0, js, cfg, bottom_drag_coeff=jd if drag else None)
+        *j, 200.0, js, jax_cfg(cfg), bottom_drag_coeff=jd if drag else None)
     before = cuda_solve.momentum_implicit.launches
     got = cuda_solve.momentum_implicit(
         *t, 200.0, ts, cfg, bottom_drag_coeff=td if drag else None)
@@ -139,7 +144,7 @@ def test_momentum_solve_matches_pallas(drag):
 def test_wrappers_never_fall_back():
     """A tensor on a device with no kernel raises; nothing moves to the
     CPU plain version."""
-    cfg = ModelConfig(nx=NX, ny=NY, nz=NZ)
+    cfg = TModelConfig(nx=NX, ny=NY, nz=NZ)
     m = torch.empty((NZ, JY, IX), dtype=torch.float64, device="meta")
     m2 = torch.empty((JY, IX), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -147,5 +152,5 @@ def test_wrappers_never_fall_back():
     t4 = torch.empty((NT, NZ, JY, IX), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         cuda_tracer.tracer_stage(t4, t4, m, m, m, m, m, m, m, m2, m2, m2, m2,
-                                 cfg, AdvScheme.UPSTREAM3, 1.0, 0.0, 1.0,
+                                 cfg, TAdvScheme.UPSTREAM3, 1.0, 0.0, 1.0,
                                  True, "corr")

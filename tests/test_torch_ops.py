@@ -32,6 +32,7 @@ from roms_tpu.ops.weights import set_weights
 from roms_tpu.state import zero_forcing as j_zero_forcing
 
 from roms_tpu_torch import bridge
+from roms_tpu_torch.config import AdvScheme as TAdvScheme
 from roms_tpu_torch import vcoord as tvcoord
 from roms_tpu_torch.ops import advection as tadv
 from roms_tpu_torch.ops import barotropic as tbaro
@@ -41,6 +42,8 @@ from roms_tpu_torch.ops import prsgrd as tprs
 from roms_tpu_torch.ops import vmix as tvmix
 from roms_tpu_torch.parallel import halo as thalo
 from roms_tpu_torch.state import zero_forcing as t_zero_forcing
+
+from torch_helpers import port_cfg
 
 torch.set_num_threads(1)
 
@@ -232,7 +235,8 @@ def test_horiz_tracer_flux(scheme, periodic):
     fu = 0.1 * rng.standard_normal((NZ, JY, IX))
     fv = 0.1 * rng.standard_normal((NZ, JY, IX))
     ref = jadv.horiz_tracer_flux(_j(tk), _j(fu), _j(fv), jg, cfg, scheme)
-    got = tadv.horiz_tracer_flux(_t(tk), _t(fu), _t(fv), tg, cfg, scheme)
+    got = tadv.horiz_tracer_flux(_t(tk), _t(fu), _t(fv), tg, port_cfg(cfg),
+                                 TAdvScheme[scheme.name])
     for a, b in zip(ref, got):
         _close(b, a)
 
@@ -251,8 +255,8 @@ def test_momentum_advection(scheme, periodic):
         _close(b, a)
     for a, b in zip(
             jadv.horiz_uv_adv_rhs(_j(u), _j(v), fu, fv, jg, cfg, scheme),
-            tadv.horiz_uv_adv_rhs(_t(u), _t(v), _t(fu), _t(fv), tg, cfg,
-                                  scheme)):
+            tadv.horiz_uv_adv_rhs(_t(u), _t(v), _t(fu), _t(fv), tg,
+                                  port_cfg(cfg), TAdvScheme[scheme.name])):
         _close(b, a, scale_atol=1e-13)
 
 

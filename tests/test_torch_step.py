@@ -9,14 +9,16 @@
 (c) the 20-step Filament at 64x64x32 through the port's driver.run
     against tests/data/filament_oracle.txt at the rtols of
     tests/test_filament_regression.py;
-(d) a fresh interpreter runs a step of the port with neither jax nor
-    flax imported, and of roms_tpu only its host-side config, monitor
-    and weights modules;
+(d) a fresh interpreter runs a Filament step and a production-physics
+    step of the port with no module of jax, flax or roms_tpu imported;
 (e) roms_tpu_torch.profile_step reads every layer of a tiny step and
-    puts the layers back; chip_smoke.py fails with no CUDA device.
+    puts the layers back; chip_smoke.py fails with no CUDA device;
+(f) a case setup builds on the card by default, and raises on a host
+    without one rather than falling back to the CPU.
 """
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -31,9 +33,12 @@ from roms_tpu.ops.weights import set_weights
 from roms_tpu.stepper import step as jstep
 
 from roms_tpu_torch import bridge, profile_step
+from roms_tpu_torch.cases import bench_production as tbp
 from roms_tpu_torch.cases import filament as tfilament
 from roms_tpu_torch.driver import run
 from roms_tpu_torch.stepper import step as tstep
+
+from torch_helpers import np_tree, port_cfg
 
 torch.set_num_threads(1)
 
@@ -47,13 +52,6 @@ def _fields(x):
             if getattr(x, f.name) is not None}
 
 
-def _np_tree(x):
-    """A JAX pytree dataclass as the dict of numpy arrays bridge takes."""
-    return {f.name: (None if getattr(x, f.name) is None
-                     else np.asarray(getattr(x, f.name)))
-            for f in dataclasses.fields(x)}
-
-
 @pytest.fixture(scope="module")
 def small():
     cfg = jfilament.config().replace(nx=32, ny=24, nz=8)
@@ -62,8 +60,9 @@ def small():
 
 def test_setup_matches_jax(small):
     cfg, (jg, jst, jfrc) = small
-    tg, tst, tfrc = tfilament.setup(cfg, dtype=F64, device="cpu")
-    assert tfilament.config() == jfilament.config()
+    tg, tst, tfrc = tfilament.setup(port_cfg(cfg), dtype=F64, device="cpu")
+    assert tfilament.config() == bridge.config_from_dict(
+        dataclasses.asdict(jfilament.config()))
     for jx, tx in ((jg, tg), (jst, tst), (jfrc, tfrc)):
         tf = _fields(tx)
         jf = _fields(jx)
@@ -76,14 +75,15 @@ def test_setup_matches_jax(small):
 
 def test_three_steps_match_jax(small):
     cfg, (jg, jst, jfrc) = small
-    tg = bridge.grid_from_numpy(_np_tree(jg), dtype=F64, device="cpu")
-    tst = bridge.state_from_numpy(_np_tree(jst), dtype=F64, device="cpu")
-    tfrc = bridge.forcing_from_numpy(_np_tree(jfrc), dtype=F64, device="cpu")
+    tg = bridge.grid_from_numpy(np_tree(jg), dtype=F64, device="cpu")
+    tst = bridge.state_from_numpy(np_tree(jst), dtype=F64, device="cpu")
+    tfrc = bridge.forcing_from_numpy(np_tree(jfrc), dtype=F64, device="cpu")
     w1, w2, _ = set_weights(cfg.ndtfast)
     jw1, jw2 = jnp.asarray(w1), jnp.asarray(w2)
+    tcfg = port_cfg(cfg)
     for i in range(3):
         jst = jstep(jst, jfrc, jg, jw1, jw2, cfg, first_step=(i == 0))
-        tst = tstep(tst, tfrc, tg, w1, w2, cfg, first_step=(i == 0))
+        tst = tstep(tst, tfrc, tg, w1, w2, tcfg, first_step=(i == 0))
     got = bridge.to_numpy(tst)
     for name, a in _fields(jst).items():
         a = np.asarray(a)
@@ -108,19 +108,20 @@ def test_twenty_step_oracle():
 def test_port_imports_no_jax():
     code = (
         "import sys, torch\n"
-        "from roms_tpu_torch.cases import filament\n"
+        "from roms_tpu_torch.cases import bench_production, filament\n"
         "from roms_tpu_torch.driver import run\n"
         "cfg = filament.config().replace(nx=8, ny=8, nz=4, ndtfast=4)\n"
         "g, s, f = filament.setup(cfg, dtype=torch.float64, device='cpu')\n"
         "s, rows = run(g, s, f, cfg, nsteps=1)\n"
         "assert rows.shape == (2, 5)\n"
+        "cfg = bench_production.config(nx=10, ny=8, nz=4, nt=3)\n"
+        "g, s, f = bench_production.setup(cfg, dtype=torch.float64, "
+        "device='cpu')\n"
+        "s, rows = run(g, s, f, cfg, nsteps=1)\n"
+        "assert rows.shape == (2, 5)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax')]\n"
+        "('jax', 'jaxlib', 'flax', 'roms_tpu')]\n"
         "assert not bad, bad\n"
-        "host = {'roms_tpu', 'roms_tpu.config', 'roms_tpu.monitor', "
-        "'roms_tpu.ops', 'roms_tpu.ops.weights'}\n"
-        "ref = {m for m in sys.modules if m.split('.')[0] == 'roms_tpu'}\n"
-        "assert ref <= host, sorted(ref - host)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -136,8 +137,19 @@ def test_profile_step_reads_every_layer():
     out = profile_step.profile(cfg, torch.device("cpu"), dtype=F64,
                                say=lambda *a: None)
     assert [getattr(m, n) for m, n in profile_step.LAYERS] == before
-    assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS}
+    # Filament has no KPP and no lateral viscosity
+    assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS} - {
+        "vmix_update", "visc3d"}
     assert len(out["wall_ms"]) == profile_step.WALL_WINDOWS
+    assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
+
+
+def test_profile_step_reads_the_production_case():
+    """`--case production` runs every layer, the KPP kernel's included."""
+    cfg = tbp.config(nx=10, ny=8, nz=4, nt=3)
+    out = profile_step.profile(cfg, torch.device("cpu"), dtype=F64,
+                               say=lambda *a: None, case=tbp)
+    assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS}
     assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
 
 
@@ -149,3 +161,15 @@ def test_chip_smoke_fails_without_cuda():
                          timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("case", [tfilament, tbp])
+def test_setup_defaults_to_the_card(case, monkeypatch):
+    """With no device argument a case builds on CUDA; a host without a
+    CUDA device raises instead of building on the CPU."""
+    assert inspect.signature(case.setup).parameters["device"].default \
+        == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = case.config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        case.setup(cfg)
