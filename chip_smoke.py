@@ -12,11 +12,16 @@ is nonzero:
      `nvidia-smi` name/power limit line; TF32 off.
   1. build: nvcc builds the three kernels for sm_90a, one process per
      source, all started together; prints each kernel's registers and
-     spills (`-Xptxas -v`).
+     spills (`-Xptxas -v`) and the tracer kernel's launch configuration
+     and occupancy (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) at
+     the production and Filament widths.
   2. kernel vs plain: each kernel against its plain PyTorch version on the
      card, on the random-input harnesses of tests/test_pallas_tracer.py,
      tests/test_pallas_solve.py and tests/test_pallas_kpp.py, in float64
-     (rtol = atol = 1e-12) and float32 (rtol 1e-5, atol 1e-5*max|ref|).
+     (rtol = atol = 1e-12) and float32 (rtol 1e-5, atol 1e-5*max|ref|);
+     the tracer cases cover all three schemes in both stages, 34 tracers
+     at nz=60, the kernel's largest nz, and planes that are not whole
+     tiles.
   3. oracle: 20 Filament steps at 64x64x32 in float64 against
      tests/data/filament_oracle.txt, tracer and solve kernels launched.
   4. production in float64: bench_production at 48x32x16, nt=4, 3 steps
@@ -26,12 +31,15 @@ is nonzero:
      bench_production.STEP_TOL/CONDITIONED_TOL that
      tests/test_torch_production.py holds the port to.
   5. Filament full width: 512x256x60 float32, 2 warm-up + 10 timed steps,
-     all finite; the tracer and solve kernels timed against their plain
-     versions at that shape with CUDA events.
+     all finite; the tracer (corrector and predictor stages) and solve
+     kernels timed against their plain versions at that shape with CUDA
+     events, with the tracer kernel's achieved TB/s, registers and
+     occupancy.
   6. production full width: bench_production at 384x192x60, nt=34,
      float32 (bench.py:66), 2 warm-up + 10 timed steps, all finite, 2 KPP,
      2 tracer and 4 solve launches a step; each kernel timed against its
-     plain version at that shape; peak device memory.
+     plain version at that shape (the tracer in both stages); peak device
+     memory.
   7. the reference's default size: bench_production at 920x480x60, nt=34,
      float32, 1 warm-up + 2 timed steps, all finite; peak device memory.
 
@@ -99,11 +107,30 @@ def phase_build():
             kernel = line.split("'")[1]
         elif kernel and ("registers" in line or "spill" in line):
             say(f"[1 build]   {kernel[:60]}: {line.strip()}")
+    from roms_tpu_torch.config import AdvScheme
+    from roms_tpu_torch.ops import cuda_tracer
+    # (width, stage, scheme, t3dmix) of the four tracer launches of a
+    # step in phases 5 and 6: both at nz=60 in float32
+    for width, stage, scheme, mix in (
+            ("production", "corr", AdvScheme.UPSTREAM3, True),
+            ("production", "pred", AdvScheme.CENTERED4, False),
+            ("filament", "corr", AdvScheme.UPSTREAM3, False),
+            ("filament", "pred", AdvScheme.CENTERED4, False)):
+        say(f"[1 build]   tracer_stage {width} {stage} f32 nz=60: "
+            + occupancy_text(cuda_tracer.occupancy(torch.float32, 60, scheme,
+                                                   mix)))
+
+
+def occupancy_text(o):
+    return (f"{o['threads']} threads (32x{o['tile_rows']}x2), {o['smem']} B "
+            f"shared, {o['registers']} registers, {o['stack']} B stack; "
+            f"{o['blocks_per_sm']} blocks = {o['warps_per_sm']} warps per SM")
 
 
 # ------------------------------------------------------------------ phase 2
-# ragged: ix = 154 = 128 + 26 leaves a partial 128-thread block along i,
-# and jy = 33 is a multiple of no block size
+# ragged: ix = 154 = 128 + 26 leaves a partial 128-thread block (solve,
+# KPP) and a partial 32-column tile (tracer) along i, and jy = 33 is a
+# multiple of no block size
 RAGGED = dict(nx=150, ny=29)
 
 
@@ -116,18 +143,26 @@ def tracer_case(name, dtype, device):
     """(cfg, positional args, keyword args) of one tracer-stage case on
     the random harness of tests/test_pallas_tracer.py."""
     from roms_tpu_torch.config import AdvScheme
-    from roms_tpu_torch.ops import _harness
-    scheme = {"corr_upstream3": AdvScheme.UPSTREAM3,
-              "corr_centered4": AdvScheme.CENTERED4,
-              "corr_akima": AdvScheme.AKIMA}.get(name, AdvScheme.UPSTREAM3)
-    shape = RAGGED if name == "corr_ragged" else {}
+    from roms_tpu_torch.ops import _harness, cuda_tracer
+    scheme = {"corr_centered4": AdvScheme.CENTERED4,
+              "corr_akima": AdvScheme.AKIMA,
+              "pred_nonperiodic": AdvScheme.CENTERED4,
+              "pred_periodic": AdvScheme.CENTERED4,
+              "pred_akima": AdvScheme.AKIMA}.get(name, AdvScheme.UPSTREAM3)
+    shape = {"corr_ragged": RAGGED,
+             # 34 tracers at nz=60 on a small plane: the production depth
+             "corr_nt34_nz60": dict(nx=40, ny=24, nz=60, nt=34),
+             # the kernel's deepest column: its largest shared memory
+             "corr_nz_max": dict(nx=20, ny=10, nz=cuda_tracer.NZ_MAX, nt=2),
+             # ix = 65 and jy = 27 are whole tiles in neither direction
+             "corr_mix_ragged": dict(nx=61, ny=23, seed=4)}.get(name, {})
     cfg, d = _harness.tracer_inputs(periodic=name == "pred_periodic",
                                     **shape)
     x = on_card(d, dtype, device)
     if name.startswith("pred"):
         args = (x["tk"], x["t_sec"], x["flx_u"], x["flx_v"], x["hz_n"],
                 x["hz_d"], x["we"], x["wi"], x["akt"], x["pmn"], x["rmask"],
-                x["umask"], x["vmask"], cfg, AdvScheme.CENTERED4, 50.0,
+                x["umask"], x["vmask"], cfg, scheme, 50.0,
                 0.5 + 1.0 / 6.0, 0.5 - 1.0 / 6.0, False, "pred")
         return cfg, args, {}
     args = (x["tk"], x["t_sec"], x["flx_u"], x["flx_v"], x["hz_n"],
@@ -135,7 +170,8 @@ def tracer_case(name, dtype, device):
             x["umask"], x["vmask"], cfg, scheme, 60.0, 0.0, 1.0, True,
             "corr")
     kw = {"stflx": x["stflx"]}
-    if name == "corr_mix":
+    if name in ("corr_mix", "corr_nt34_nz60", "corr_nz_max",
+                "corr_mix_ragged"):
         kw["mix"] = {k: x[k] for k in ("diff2", "pmon_u", "pnom_v")}
     return cfg, args, kw
 
@@ -163,7 +199,8 @@ def kpp_case(name, first_step, dtype, device):
 
 TRACER_CASES = ("corr_upstream3", "corr_centered4", "corr_akima",
                 "pred_nonperiodic", "pred_periodic", "corr_ragged",
-                "corr_mix")
+                "corr_mix", "pred_upstream3", "pred_akima", "corr_nt34_nz60",
+                "corr_nz_max", "corr_mix_ragged")
 SOLVE_CASES = (("drag", {}), ("no_drag", {}), ("drag_ragged", RAGGED))
 KPP_CASES = (("salinity", True), ("salinity", False), ("no_salinity", True),
              ("no_salinity", False), ("no_mask", False),
@@ -409,6 +446,7 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
     from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer, eos, vmix
     from roms_tpu_torch.ops.kinematics import hz_u
     from roms_tpu_torch.parallel.halo import shift
+    from roms_tpu_torch.stepper import AM3_CRV
     dtype = st.t.dtype
     nt, nz, jy, ix = st.t.shape
     col = jy * ix
@@ -419,13 +457,33 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
         mix = {"diff2": torch.full((nt, jy, ix), cfg.tnu2, dtype=dtype,
                                    device=st.t.device),
                "pmon_u": grid.pmon_u, "pnom_v": grid.pnom_v}
-    tr_args = (st.t, st.t_prev, st.flx_u, st.flx_v, st.hz, st.hz, st.we,
+    # the corrector reads Hz(n) and a distinct Hz(n+1), as the main path
+    # does (stepper.py, the corrector's tracer_stage call)
+    gen = torch.Generator(device=st.hz.device).manual_seed(0)
+    hz_new = st.hz * (1.0 + 1e-3 * torch.rand(st.hz.shape, generator=gen,
+                                               device=st.hz.device,
+                                               dtype=dtype))
+    tr_args = (st.t, st.t_prev, st.flx_u, st.flx_v, st.hz, hz_new, st.we,
                st.wi, st.akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
                cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr")
     tr_kw = dict(stflx=frc.stflx, mix=mix)
+    # the predictor's inputs as the main path builds them (stepper.py,
+    # pre_step3d after the first step)
+    dtau_p = cfg.dt * (1.0 - AM3_CRV)
+    flx_div = 0.5 * dtau_p * pmn[None] * (
+        shift(st.flx_u, 0, 1) - st.flx_u + shift(st.flx_v, 1, 0) - st.flx_v
+        + (st.we[1:] + st.wi[1:]) - (st.we[:-1] + st.wi[:-1]))
+    pr_args = (st.t, st.t_prev, st.flx_u, st.flx_v, st.hz, flx_div, st.we,
+               st.wi, st.akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+               cfg.ts_pred_scheme, dtau_p, 0.5 + AM3_CRV, 0.5 - AM3_CRV,
+               False, "pred")
     # lower count of arithmetic per (tracer, level, column): flux,
     # divergence, spline and Thomas sweeps
     tr_ops = 40 * nt * nz * col
+    tr_occ = {"corr": cuda_tracer.occupancy(dtype, nz, cfg.ts_corr_scheme,
+                                            mix is not None),
+              "pred": cuda_tracer.occupancy(dtype, nz, cfg.ts_pred_scheme,
+                                            False)}
 
     hzu = hz_u(st.hz)
     rd = vmix.bottom_drag(st.u, st.v, st.hz, cfg)
@@ -437,8 +495,13 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
     so_kw = dict(bottom_drag_coeff=0.5 * (rd + shift(rd, 0, -1)))
     so_ops = 10 * nz * col
 
+    # both tracer rows are the one kernel and its one launch count
     cases = [("tracer_stage", cuda_tracer.tracer_stage,
               cuda_tracer.tracer_stage_plain, tr_args, tr_kw, tr_ops,
+              "roms_tpu_torch/csrc/tracer_stage.cu",
+              "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
+             ("tracer_stage_pred", cuda_tracer.tracer_stage,
+              cuda_tracer.tracer_stage_plain, pr_args, {}, tr_ops,
               "roms_tpu_torch/csrc/tracer_stage.cu",
               "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
              ("momentum_solve", cuda_solve.momentum_implicit,
@@ -476,6 +539,11 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
         err, k_ms, p_ms = kernel_vs_plain(k, p, dtype, f"{what} {name}",
                                           floor=floor)
         b_ms, b_by = bound(kern.last_bytes, ops, dtype)
+        if name.startswith("tracer_stage"):
+            occ = tr_occ["pred" if name.endswith("pred") else "corr"]
+            note += (f"; {kern.last_bytes / 1e9:.4f} GB compulsory at "
+                     f"{kern.last_bytes / k_ms / 1e9:.4f} TB/s, "
+                     + occupancy_text(occ))
         say(f"[{what}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
             f"(medians of 40 CUDA-event launches each), bound {b_ms:.4f} ms "
             f"({b_by}), max abs err {err:.3e}{note}")

@@ -37,13 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _PTR, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # argtypes of the C entry points (see csrc/): pointers, ints, doubles, stream
-_TRACER_ARGS = [_PTR] * 19 + [_INT] * 15 + [_DBL] * 3 + [_PTR]
+_TRACER_ARGS = [_PTR] * 18 + [_INT] * 17 + [_DBL] * 3 + [_PTR]
 _SOLVE_ARGS = [_PTR] * 9 + [_INT] * 3 + [_DBL] + [_PTR]
 _KPP_ARGS = [ctypes.POINTER(_PTR), ctypes.POINTER(_INT),
              ctypes.POINTER(_DBL), _PTR]
 ENTRY_POINTS = {
     "roms_tracer_stage_f32": _TRACER_ARGS,
     "roms_tracer_stage_f64": _TRACER_ARGS,
+    "roms_tracer_stage_occupancy": [_INT] * 6 + [ctypes.POINTER(_INT)],
     "roms_momentum_solve_f32": _SOLVE_ARGS,
     "roms_momentum_solve_f64": _SOLVE_ARGS,
     "roms_kpp_vmix_f32": _KPP_ARGS,

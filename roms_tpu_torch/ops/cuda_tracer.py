@@ -9,7 +9,10 @@ PyTorch version (counterpart of roms_tpu/ops/pallas_tracer.py).
 `tracer_stage` launches `csrc/tracer_stage.cu` for a CUDA tensor and calls
 `tracer_stage_plain` for a CPU tensor; any other device raises.  Its
 `launches` counts the launches and `last_bytes` holds the compulsory
-bytes of the last one.  The
+bytes of the last one.  `launch_plan` picks the kernel's tile (rows of
+TILE_I columns, two threads a column) for a (type, nz): the block keeps
+two per-level arrays of its columns in shared memory, so nz is capped at
+NZ_MAX.  `occupancy` reports a launch configuration on the card.  The
 plain version composes the port's `advection` and `vmix` functions, as
 tests/test_pallas_tracer.py composes the JAX ones, plus the fused t3dmix
 tendency of the TPU kernel.
@@ -17,6 +20,7 @@ tendency of the TPU kernel.
 
 from __future__ import annotations
 
+import ctypes
 import types
 
 import torch
@@ -29,6 +33,53 @@ from roms_tpu_torch.parallel.halo import shift
 
 _SCHEME_ID = {AdvScheme.CENTERED4: 0, AdvScheme.UPSTREAM3: 1,
               AdvScheme.AKIMA: 2}
+
+TILE_I = 32                  # columns of a tile along i (one warp)
+TILE_J = (4, 2, 1)           # tile rows the kernel takes, largest first
+NZ_MAX = 192                 # deepest column the kernel takes
+RING = 3                     # ring slots of the level tiles (NB in the .cu)
+SMEM_BLOCK = 232_448         # dynamic shared memory of one block, sm_90
+SMEM_SM = 233_472            # shared memory of one SM (228 KB) ...
+SMEM_RESERVED = 1_024        # ... of which each resident block reserves 1 KB
+THREADS_SM = 768             # the kernel's register cap leaves 768 an SM
+
+
+def smem_bytes(tj: int, nz: int, elem: int, mix: bool) -> int:
+    """Shared memory of one block of `tj` tile rows (the layout of
+    csrc/tracer_stage.cu:layout): the face fluxes (twice with mix); two
+    buffers of one level's r.h.s.; RING slots of one level's tiles: tk,
+    (tj+6) x (TILE_I+6) with the three-cell halo, and with mix tj+2 rows
+    of Hz(n+1); the two per-level arrays CF and FC, nz levels of tj*TILE_I
+    columns."""
+    wt = (tj + 6) * (TILE_I + 6)
+    ncol = tj * TILE_I
+    faces = tj * (TILE_I + 1) + (tj + 1) * TILE_I
+    m = int(mix)
+    slot = wt + m * (tj + 2) * (TILE_I + 6)
+    return ((1 + m) * faces + 2 * ncol + RING * slot + 2 * nz * ncol) * elem
+
+
+def launch_plan(elem: int, nz: int, mix: bool) -> tuple[int, int]:
+    """(tile rows, shared-memory bytes) of a launch: the tile that keeps
+    the most columns resident on an SM (blocks of 2 * 32 * rows threads,
+    limited by shared memory and by the threads the register cap allows);
+    among those, one that leaves at least two blocks per SM (one block's
+    barriers then do not idle the SM), and then the tallest (its halo
+    costs least).  Raises ValueError outside 2 <= nz <= NZ_MAX."""
+    if not 2 <= nz <= NZ_MAX:
+        raise ValueError(f"tracer_stage: the kernel takes 2 <= nz <= "
+                         f"{NZ_MAX}, got nz={nz}")
+    best = None
+    for tj in TILE_J:
+        b = smem_bytes(tj, nz, elem, mix)
+        if b > SMEM_BLOCK:
+            continue
+        blocks = min(SMEM_SM // (b + SMEM_RESERVED),
+                     THREADS_SM // (2 * tj * TILE_I))
+        key = (blocks * tj, min(blocks, 2), tj)
+        if best is None or key > best[0]:
+            best = (key, tj, b)
+    return best[1], best[2]
 
 
 def usable(cfg: ModelConfig) -> bool:
@@ -77,14 +128,18 @@ def tracer_stage(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
                                   wi, akt, pmn, rmask, umask, vmask, cfg,
                                   scheme, dtau, c_tk, c_sec, apply_mask,
                                   mode, stflx=stflx, mix=mix, own=own)
+    nt, nz, jy, ix = tk.shape
+    tj, smem = launch_plan(tk.element_size(), nz, mix is not None)
     if tk.device.type != "cuda":
         raise ValueError(f"tracer_stage: no kernel for {tk.device}")
     if mode not in ("pred", "corr"):
         raise ValueError(f"mode must be 'pred' or 'corr', got {mode!r}")
-    nt, nz, jy, ix = tk.shape
     imix = max(cfg.i_t_and_s, 1)
-    if nz < 2 or jy < 4 or ix < 4:
-        raise ValueError("tracer_stage: nz >= 2 and jy, ix >= 4 required")
+    if jy < 4 or ix < 4:
+        raise ValueError("tracer_stage: jy, ix >= 4 required")
+    if (nz + 1) * jy * ix >= 2**31:
+        raise ValueError("tracer_stage: (nz + 1) * jy * ix must be < 2**31 "
+                         "(the kernel's offsets within a field are ints)")
     if akt.dim() != 4 or akt.shape[0] < imix:
         raise ValueError(f"tracer_stage: akt needs >= {imix} rows")
     shapes = {"tk": (tk, (nt, nz, jy, ix)), "t_sec": (t_sec, (nt, nz, jy, ix)),
@@ -105,8 +160,6 @@ def tracer_stage(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
              (own if own is not None else (None,) * 4)]
 
     out = torch.empty_like(tk)
-    scratch = torch.empty((2,) + tuple(tk.shape), dtype=tk.dtype,
-                          device=tk.device)
     lib = _build.library()
     fn = (lib.roms_tracer_stage_f64 if tk.dtype == torch.float64
           else lib.roms_tracer_stage_f32)
@@ -115,10 +168,10 @@ def tracer_stage(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
     err = fn(p(tk), p(t_sec), p(flx_u), p(flx_v), p(hz_a), p(hz_b), p(we),
              p(wi), p(akt), p(pmn), p(rmask), p(umask), p(vmask), p(stflx),
              p(mx.get("diff2")), p(mx.get("pmon_u")), p(mx.get("pnom_v")),
-             p(out), p(scratch),
+             p(out),
              nt, nz, jy, ix, imix, _SCHEME_ID[scheme], int(mode == "corr"),
              int(cfg.masking), int(cfg.ew_periodic), int(cfg.ns_periodic),
-             *own_i, int(apply_mask),
+             *own_i, int(apply_mask), tj, smem,
              float(dtau), float(c_tk), float(c_sec),
              torch.cuda.current_stream(tk.device).cuda_stream)
     _build.check(err, "tracer_stage")
@@ -131,6 +184,24 @@ def tracer_stage(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
 
 tracer_stage.launches = 0
 tracer_stage.last_bytes = 0
+
+
+def occupancy(dtype: torch.dtype, nz: int, scheme: AdvScheme,
+              mix: bool) -> dict:
+    """The kernel's launch configuration for (dtype, nz, scheme, mix) on
+    the current card: tile rows, threads and shared memory per block,
+    resident blocks and warps per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), registers and
+    stack bytes per thread."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    tj, smem = launch_plan(elem, nz, mix)
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().roms_tracer_stage_occupancy(
+        int(dtype == torch.float64), _SCHEME_ID[scheme], int(mix), tj, nz,
+        smem, out), "tracer_stage occupancy")
+    return {"tile_rows": tj, "threads": 2 * tj * TILE_I, "smem": smem,
+            "blocks_per_sm": out[0], "warps_per_sm": out[0] * 2 * tj,
+            "registers": out[1], "stack": out[2]}
 
 
 def tracer_stage_plain(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
