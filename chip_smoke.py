@@ -12,16 +12,18 @@ is nonzero:
      `nvidia-smi` name/power limit line; TF32 off.
   1. build: nvcc builds the three kernels for sm_90a, one process per
      source, all started together; prints each kernel's registers and
-     spills (`-Xptxas -v`) and the tracer kernel's launch configuration
-     and occupancy (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) at
-     the production and Filament widths.
+     spills (`-Xptxas -v`) and each kernel's launch configuration and
+     occupancy (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) at the
+     production and Filament widths (nz=60, float32).
   2. kernel vs plain: each kernel against its plain PyTorch version on the
      card, on the random-input harnesses of tests/test_pallas_tracer.py,
      tests/test_pallas_solve.py and tests/test_pallas_kpp.py, in float64
      (rtol = atol = 1e-12) and float32 (rtol 1e-5, atol 1e-5*max|ref|);
      the tracer cases cover all three schemes in both stages, 34 tracers
      at nz=60, the kernel's largest nz, and planes that are not whole
-     tiles.
+     tiles; the solve and KPP cases cover nz=60, each kernel's largest
+     nz and ragged planes, and KPP also partial edge ownership and a grid
+     periodic in i only.
   3. oracle: 20 Filament steps at 64x64x32 in float64 against
      tests/data/filament_oracle.txt, tracer and solve kernels launched.
   4. production in float64: bench_production at 48x32x16, nt=4, 3 steps
@@ -33,13 +35,16 @@ is nonzero:
   5. Filament full width: 512x256x60 float32, 2 warm-up + 10 timed steps,
      all finite; the tracer (corrector and predictor stages) and solve
      kernels timed against their plain versions at that shape with CUDA
-     events, with the tracer kernel's achieved TB/s, registers and
-     occupancy.
+     events, with each kernel's achieved TB/s, registers and occupancy.
   6. production full width: bench_production at 384x192x60, nt=34,
      float32 (bench.py:66), 2 warm-up + 10 timed steps, all finite, 2 KPP,
      2 tracer and 4 solve launches a step; each kernel timed against its
-     plain version at that shape (the tracer in both stages); peak device
-     memory.
+     plain version at that shape (the tracer in both stages), with each
+     kernel's achieved TB/s, registers and occupancy; peak device memory.
+     Kernel and plain times are calls as the main path makes them, with
+     the host's work before the launch; the kernel's device time alone
+     (`time_ms` with `ahead`) and its host time a call are printed beside
+     them and carried in the JSON line as device_ms and host_ms.
   7. the reference's default size: bench_production at 920x480x60, nt=34,
      float32, 1 warm-up + 2 timed steps, all finite; peak device memory.
 
@@ -53,6 +58,7 @@ numpy: nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -108,7 +114,7 @@ def phase_build():
         elif kernel and ("registers" in line or "spill" in line):
             say(f"[1 build]   {kernel[:60]}: {line.strip()}")
     from roms_tpu_torch.config import AdvScheme
-    from roms_tpu_torch.ops import cuda_tracer
+    from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer
     # (width, stage, scheme, t3dmix) of the four tracer launches of a
     # step in phases 5 and 6: both at nz=60 in float32
     for width, stage, scheme, mix in (
@@ -119,18 +125,30 @@ def phase_build():
         say(f"[1 build]   tracer_stage {width} {stage} f32 nz=60: "
             + occupancy_text(cuda_tracer.occupancy(torch.float32, 60, scheme,
                                                    mix)))
+    # the solve runs at both widths, KPP only in the production case
+    for width in ("production", "filament"):
+        say(f"[1 build]   momentum_solve {width} f32 nz=60: "
+            + occupancy_text(cuda_solve.occupancy(torch.float32, 60)))
+    say("[1 build]   kpp_vmix production f32 nz=60: "
+        + kpp_occupancy_text(cuda_kpp.occupancy(torch.float32, 60)))
 
 
 def occupancy_text(o):
-    return (f"{o['threads']} threads (32x{o['tile_rows']}x2), {o['smem']} B "
+    shape = f" (32x{o['tile_rows']}x2)" if "tile_rows" in o else ""
+    return (f"{o['threads']} threads{shape}, {o['smem']} B "
             f"shared, {o['registers']} registers, {o['stack']} B stack; "
             f"{o['blocks_per_sm']} blocks = {o['warps_per_sm']} warps per SM")
 
 
+def kpp_occupancy_text(o):
+    return "; ".join(f"{name}: {occupancy_text(o[name])}"
+                     for name in ("column", "profile"))
+
+
 # ------------------------------------------------------------------ phase 2
-# ragged: ix = 154 = 128 + 26 leaves a partial 128-thread block (solve,
-# KPP) and a partial 32-column tile (tracer) along i, and jy = 33 is a
-# multiple of no block size
+# ragged: ix = 154 = 4 * 32 + 26 leaves a partial 32-column tile (tracer,
+# KPP) along i, jy = 33 is a multiple of no tile's rows, and the solve's
+# 154 * 33 columns fill no whole number of 32-column blocks
 RAGGED = dict(nx=150, ny=29)
 
 
@@ -180,16 +198,25 @@ def kpp_case(name, first_step, dtype, device):
     """(cfg, positional args) of one vmix update on the random harness of
     tests/test_pallas_kpp.py."""
     from types import SimpleNamespace
-    from roms_tpu_torch.ops import _harness
+    from roms_tpu_torch.ops import _harness, cuda_kpp
     kw = {"salinity": {}, "no_salinity": dict(salinity=False),
           "no_mask": dict(masking=False, seed=3),
           "periodic": dict(ew_periodic=True, ns_periodic=True, seed=5),
-          "ragged": RAGGED}[name]
+          "ragged": RAGGED,
+          # the production depth on a small plane
+          "nz60": dict(nx=40, ny=24, nz=60, seed=6),
+          # the kernel's deepest column: its largest shared memory
+          "nz_max": dict(nx=20, ny=10, nz=cuda_kpp.NZ_MAX, seed=7),
+          # the halo's fill map on the west and north edges only
+          "partial_own": dict(seed=8),
+          "ew_periodic": dict(ew_periodic=True, seed=9)}[name]
+    own = (True, False, False, True) if name == "partial_own" else \
+        (None,) * 4
     cfg, d = _harness.kpp_inputs(**kw)
     x = on_card(d, dtype, device)
     grid = SimpleNamespace(f=x["f"], rmask=x["rmask"], umask=x["umask"],
-                           vmask=x["vmask"], own_w=None, own_e=None,
-                           own_s=None, own_n=None)
+                           vmask=x["vmask"], own_w=own[0], own_e=own[1],
+                           own_s=own[2], own_n=own[3])
     state = SimpleNamespace(swrf=x["swrf"], hbls=x["hbls"], hbbl=x["hbbl"])
     forcing = SimpleNamespace(stflx=x["stflx"], srflx=x["srflx"],
                               sustr=x["sustr"], svstr=x["svstr"])
@@ -201,10 +228,14 @@ TRACER_CASES = ("corr_upstream3", "corr_centered4", "corr_akima",
                 "pred_nonperiodic", "pred_periodic", "corr_ragged",
                 "corr_mix", "pred_upstream3", "pred_akima", "corr_nt34_nz60",
                 "corr_nz_max", "corr_mix_ragged")
-SOLVE_CASES = (("drag", {}), ("no_drag", {}), ("drag_ragged", RAGGED))
+SOLVE_CASES = (("drag", {}), ("no_drag", {}), ("drag_ragged", RAGGED),
+               ("drag_nz60", dict(nz=60)),
+               ("drag_nz_max", None))     # the kernel's deepest column
 KPP_CASES = (("salinity", True), ("salinity", False), ("no_salinity", True),
              ("no_salinity", False), ("no_mask", False),
-             ("periodic", False), ("ragged", False))
+             ("periodic", False), ("ragged", False), ("nz60", False),
+             ("nz_max", False), ("partial_own", False),
+             ("partial_own", True), ("ew_periodic", False))
 
 
 def compare(got, ref, dtype, periodic, what, floor=None):
@@ -247,6 +278,8 @@ def phase_kernels(device):
             say(f"[2 kernels] tracer_stage {name:17s} {tag}: "
                 f"max abs err {err:.3e}")
         for name, shape in SOLVE_CASES:
+            if shape is None:
+                shape = dict(nx=20, ny=10, nz=cuda_solve.NZ_MAX)
             cfg, d = _harness.solve_inputs(**shape)
             x = on_card(d, dtype, device)
             args = (x["rhs"], x["hzf"], x["akvf"], x["wif"], x["dc0"], 200.0,
@@ -257,7 +290,7 @@ def phase_kernels(device):
             torch.cuda.synchronize()
             err = compare(got, ref, dtype, True,
                           f"momentum_solve {name} {tag}")
-            say(f"[2 kernels] momentum_solve {name:11s}    {tag}: "
+            say(f"[2 kernels] momentum_solve {name:12s}   {tag}: "
                 f"max abs err {err:.3e}")
         for name, first in KPP_CASES:
             cfg, args = kpp_case(name, first, dtype, device)
@@ -374,20 +407,39 @@ def phase_production_f64(device):
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(fn, reps=20):
-    """Milliseconds of fn() for each of reps launches, CUDA events."""
+def time_ms(fn, reps=20, ahead=False):
+    """(event ms, host ms) of fn() for each of reps launches.  CUDA events
+    bracket the call as the main path makes it: with the host's work
+    before its first launch, while the device waits.  With `ahead`, the
+    device first sleeps for over twice the host's time for one call, so
+    the host has issued the whole call before the device reaches the
+    first event, and the events bracket the device's work alone.  The host
+    ms is the host's clock around fn(), which returns once it has issued
+    the call."""
     fn()
     torch.cuda.synchronize()
-    ts = []
+    cycles = 0
+    if ahead:
+        t0 = time.perf_counter()
+        fn()
+        # at most 2e9 cycles a second: a sleep of 4e9 * host seconds plus
+        # half a millisecond lasts over twice the host's time
+        cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000
+        torch.cuda.synchronize()
+    ts, hs = [], []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if cycles:
+            torch.cuda._sleep(cycles)
         e0.record()
+        t0 = time.perf_counter()
         fn()
+        hs.append(1e3 * (time.perf_counter() - t0))
         e1.record()
         e1.synchronize()
         ts.append(e0.elapsed_time(e1))
-    return ts
+    return ts, hs
 
 
 def promoted(x):
@@ -416,17 +468,24 @@ def roundoff_floor(plain, args):
 
 def kernel_vs_plain(kernel, plain, dtype, what, reps=20, floor=None):
     """Both versions on the same inputs: (max abs err, kernel ms, plain
-    ms), medians of launches timed in turns plain, kernel, kernel, plain.
-    The kernel reproduces every point, so whole arrays are compared."""
+    ms, kernel device ms, kernel host ms), medians of launches timed in
+    turns plain, kernel, kernel, plain (`time_ms`).  Kernel and plain ms
+    are calls as the main path makes them, the host's work included; the
+    kernel's device ms brackets its device work alone, timed after each
+    kernel turn; its host ms is the host's time to issue one call.  The
+    kernel reproduces every point, so whole arrays are compared."""
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = compare(got, ref, dtype, True, what, floor)
     del got, ref
-    p1 = time_ms(plain, reps)
-    k1 = time_ms(kernel, reps)
-    k2 = time_ms(kernel, reps)
-    p2 = time_ms(plain, reps)
-    return err, float(np.median(k1 + k2)), float(np.median(p1 + p2))
+    p1, _ = time_ms(plain, reps)
+    k1, h1 = time_ms(kernel, reps)
+    d1, _ = time_ms(kernel, reps, ahead=True)
+    k2, h2 = time_ms(kernel, reps)
+    d2, _ = time_ms(kernel, reps, ahead=True)
+    p2, _ = time_ms(plain, reps)
+    return (err, float(np.median(k1 + k2)), float(np.median(p1 + p2)),
+            float(np.median(d1 + d2)), float(np.median(h1 + h2)))
 
 
 def bound(nbytes, ops, dtype):
@@ -480,6 +539,7 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
     # lower count of arithmetic per (tracer, level, column): flux,
     # divergence, spline and Thomas sweeps
     tr_ops = 40 * nt * nz * col
+    occ = {"momentum_solve": cuda_solve.occupancy(dtype, nz)}
     tr_occ = {"corr": cuda_tracer.occupancy(dtype, nz, cfg.ts_corr_scheme,
                                             mix is not None),
               "pred": cuda_tracer.occupancy(dtype, nz, cfg.ts_pred_scheme,
@@ -515,6 +575,7 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
                    grid, cfg, False)
         # lower count per (level, column): Ri, smoother, wscale, profiles
         kp_ops = 100 * nz * col
+        occ["kpp_vmix"] = cuda_kpp.occupancy(dtype, nz)
         cases.append(("kpp_vmix", cuda_kpp.vmix_update,
                       cuda_kpp.vmix_update_plain, kp_args, {}, kp_ops,
                       "roms_tpu_torch/csrc/kpp_vmix.cu",
@@ -536,22 +597,30 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
             floor = roundoff_floor(plain, args)
             note = (", plain f32 vs f64 " + ", ".join(
                 f"{n} {v:.3e}" for n, v in floor.items()))
-        err, k_ms, p_ms = kernel_vs_plain(k, p, dtype, f"{what} {name}",
-                                          floor=floor)
+        err, k_ms, p_ms, dev_ms, host_ms = kernel_vs_plain(
+            k, p, dtype, f"{what} {name}", floor=floor)
         b_ms, b_by = bound(kern.last_bytes, ops, dtype)
+        note += (f"; {kern.last_bytes / 1e9:.4f} GB compulsory at "
+                 f"{kern.last_bytes / k_ms / 1e9:.4f} TB/s a call, "
+                 f"{kern.last_bytes / dev_ms / 1e9:.4f} TB/s on the "
+                 f"device; ")
         if name.startswith("tracer_stage"):
-            occ = tr_occ["pred" if name.endswith("pred") else "corr"]
-            note += (f"; {kern.last_bytes / 1e9:.4f} GB compulsory at "
-                     f"{kern.last_bytes / k_ms / 1e9:.4f} TB/s, "
-                     + occupancy_text(occ))
+            note += occupancy_text(
+                tr_occ["pred" if name.endswith("pred") else "corr"])
+        elif name == "kpp_vmix":
+            note += kpp_occupancy_text(occ[name])
+        else:
+            note += occupancy_text(occ[name])
         say(f"[{what}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-            f"(medians of 40 CUDA-event launches each), bound {b_ms:.4f} ms "
-            f"({b_by}), max abs err {err:.3e}{note}")
+            f"(calls, medians of 40 CUDA-event launches each), kernel "
+            f"device {dev_ms:.4f} ms, host {host_ms:.4f} ms a call, bound "
+            f"{b_ms:.4f} ms ({b_by}), max abs err {err:.3e}{note}")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": launches,
                      "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": None, "device_ms": dev_ms,
+                     "host_ms": host_ms})
     return rows
 
 
@@ -560,6 +629,7 @@ def full_width(case, cfg, device, warm, nsteps, what, timings):
     then timed steps between two synchronizes; checks finiteness and the
     launch counts; with `timings`, returns the kernels' JSON rows."""
     from roms_tpu_torch.driver import run
+    gc.collect()        # an earlier phase's tensors held by reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     grid, st, frc = case.setup(cfg, dtype=torch.float32, device=device)

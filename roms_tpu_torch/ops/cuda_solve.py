@@ -4,16 +4,37 @@ PyTorch version (counterpart of roms_tpu/ops/pallas_solve.py).
 `momentum_implicit` launches `csrc/momentum_solve.cu` for a CUDA tensor
 and calls `momentum_implicit_plain` for a CPU tensor; any other device
 raises.  Its `launches` counts the launches and `last_bytes` holds the
-compulsory bytes of the last one.  The plain version mirrors roms_tpu/ops/vmix.py:momentum_implicit
+compulsory bytes of the last one.  A block of the kernel keeps CF and DC
+of its columns in shared memory, which the launch sizes from nz, so nz is
+capped at NZ_MAX; `occupancy` reports the launch configuration on the
+card.  The plain version mirrors roms_tpu/ops/vmix.py:momentum_implicit
 (reference: pre_step3d4S.F:377-424 / step3d_uv1.F:146-206).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.ops import _build
+
+NZ_MAX = 192                 # deepest column the kernel takes
+
+
+def check_nz(nz: int):
+    """Raise ValueError outside the kernel's 2 <= nz <= NZ_MAX."""
+    if not 2 <= nz <= NZ_MAX:
+        raise ValueError(f"momentum_implicit: the kernel takes 2 <= nz <= "
+                         f"{NZ_MAX}, got nz={nz}")
+
+
+def launch_bytes(nz: int, jy: int, ix: int, elem: int, drag: bool) -> int:
+    """Compulsory bytes of one launch: rhs and hz_face (nz levels),
+    akv_face and wi_face (nz + 1), dc0, sstr and the drag, each read once;
+    the solution written once."""
+    return (3 * nz + 2 * (nz + 1) + 2 + int(drag)) * jy * ix * elem
 
 
 def momentum_implicit(rhs, hz_face, akv_face, wi_face, dc0, dtau, sstr,
@@ -24,38 +45,46 @@ def momentum_implicit(rhs, hz_face, akv_face, wi_face, dc0, dtau, sstr,
     if rhs.device.type == "cpu":
         return momentum_implicit_plain(rhs, hz_face, akv_face, wi_face, dc0,
                                        dtau, sstr, cfg, bottom_drag_coeff)
+    nz, jy, ix = rhs.shape
+    check_nz(nz)
     if rhs.device.type != "cuda":
         raise ValueError(f"momentum_implicit: no kernel for {rhs.device}")
-    nz, jy, ix = rhs.shape
-    if nz < 2:
-        raise ValueError("momentum_implicit: nz >= 2 required")
-    shapes = {"rhs": (rhs, (nz, jy, ix)), "hz_face": (hz_face, (nz, jy, ix)),
-              "akv_face": (akv_face, (nz + 1, jy, ix)),
-              "wi_face": (wi_face, (nz + 1, jy, ix)), "dc0": (dc0, (jy, ix)),
-              "sstr": (sstr, (jy, ix))}
-    if bottom_drag_coeff is not None:
-        shapes["bottom_drag_coeff"] = (bottom_drag_coeff, (jy, ix))
-    _build.check_inputs(shapes, rhs)
+    drag = bottom_drag_coeff is not None
+    _build.check_groups(
+        rhs, ((nz, jy, ix), "rhs hz_face", (rhs, hz_face)),
+        ((nz + 1, jy, ix), "akv_face wi_face", (akv_face, wi_face)),
+        ((jy, ix), "dc0 sstr bottom_drag_coeff",
+         (dc0, sstr, bottom_drag_coeff) if drag else (dc0, sstr)))
     out = torch.empty_like(rhs)
-    cf = torch.empty_like(rhs)
-    fn = (_build.library().roms_momentum_solve_f64
-          if rhs.dtype == torch.float64
-          else _build.library().roms_momentum_solve_f32)
-    err = fn(_build.ptr(rhs), _build.ptr(hz_face), _build.ptr(akv_face),
-             _build.ptr(wi_face), _build.ptr(dc0), _build.ptr(sstr),
-             _build.ptr(bottom_drag_coeff), _build.ptr(out), _build.ptr(cf),
-             nz, jy, ix, float(dtau),
-             torch.cuda.current_stream(rhs.device).cuda_stream)
+    lib = _build.library()
+    fn = (lib.roms_momentum_solve_f64 if rhs.dtype == torch.float64
+          else lib.roms_momentum_solve_f32)
+    err = fn(rhs.data_ptr(), hz_face.data_ptr(), akv_face.data_ptr(),
+             wi_face.data_ptr(), dc0.data_ptr(), sstr.data_ptr(),
+             bottom_drag_coeff.data_ptr() if drag else None, out.data_ptr(),
+             nz, jy, ix, float(dtau), _build.stream(rhs))
     _build.check(err, "momentum_solve")
     momentum_implicit.launches += 1
-    momentum_implicit.last_bytes = _build.compulsory_bytes(
-        (rhs, hz_face, akv_face, wi_face, dc0, sstr, bottom_drag_coeff),
-        (out,))
+    momentum_implicit.last_bytes = launch_bytes(nz, jy, ix,
+                                                rhs.element_size(), drag)
     return out
 
 
 momentum_implicit.launches = 0
 momentum_implicit.last_bytes = 0
+
+
+def occupancy(dtype: torch.dtype, nz: int) -> dict:
+    """The kernel's launch configuration for (dtype, nz) on the current
+    card, as the library reports it: threads and shared memory per block,
+    resident blocks and warps per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), registers and stack
+    bytes per thread."""
+    check_nz(nz)
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().roms_momentum_solve_occupancy(
+        int(dtype == torch.float64), nz, out), "momentum_solve occupancy")
+    return _build.occupancy_dict(out)
 
 
 def momentum_implicit_plain(rhs, hz_face, akv_face, wi_face, dc0, dtau,

@@ -10,7 +10,12 @@ the CPU:
     tensor, against the TPU kernel `pallas_kpp.vmix_update` in interpret
     mode, over the cases of tests/test_pallas_kpp.py and on the [1:-1]
     interior that file compares;
-(c) no fallback: a tensor on a device with no kernel raises.
+(c) no fallback: a tensor on a device with no kernel raises;
+(d) `cuda_kpp.vmix_update` on the CPU (its plain version, which the card
+    holds the kernel to) against the JAX `interior_mix` + `lmd_kpp` with
+    the ownership flags set: partial ownership, and a grid periodic in i
+    only, where the physical-edge fill of the smoothers applies to some
+    edges and not others; whole arrays at rtol 1e-12.
 
 Inputs are the random harness of tests/test_pallas_kpp.py, made with
 numpy from a seed (`roms_tpu_torch.ops._harness.kpp_inputs`).
@@ -50,11 +55,12 @@ def _inputs(name):
             {k: torch.as_tensor(v) for k, v in d.items()})
 
 
-def _ns(x):
-    """(grid, state, forcing) namespaces over one package's arrays."""
+def _ns(x, own=(None,) * 4):
+    """(grid, state, forcing) namespaces over one package's arrays; own:
+    the (west, east, south, north) ownership flags, None = owned."""
     grid = types.SimpleNamespace(
         f=x["f"], rmask=x["rmask"], umask=x["umask"], vmask=x["vmask"],
-        own_w=None, own_e=None, own_s=None, own_n=None)
+        own_w=own[0], own_e=own[1], own_s=own[2], own_n=own[3])
     state = types.SimpleNamespace(swrf=x["swrf"], hbls=x["hbls"],
                                   hbbl=x["hbbl"])
     forcing = types.SimpleNamespace(stflx=x["stflx"], srflx=x["srflx"],
@@ -175,3 +181,40 @@ def test_vmix_update_never_falls_back():
         cuda_kpp.vmix_update(state, meta["u"], meta["v"], meta["t"],
                              meta["bvf"], meta["z_r"], meta["z_w"],
                              meta["hz"], forcing, grid, cfg, False)
+
+
+# ---------------------------------------------------- (d) ownership flags
+OWN_CASES = {
+    # a block on the west and north physical edges only
+    "west_north": (dict(seed=8), (True, False, False, True)),
+    # a block on the south and east edges only, without masking
+    "south_east": (dict(masking=False, seed=10), (False, True, True, False)),
+    # periodic in i only: the fill applies to the rows alone
+    "ew_periodic": (dict(ew_periodic=True, seed=9), (None,) * 4),
+    "ew_periodic_south": (dict(ew_periodic=True, salinity=False, seed=11),
+                          (True, True, True, False)),
+}
+
+
+@pytest.mark.parametrize("first_step", [True, False])
+@pytest.mark.parametrize("name", list(OWN_CASES))
+def test_vmix_update_with_ownership_matches_jax(name, first_step):
+    kw, own = OWN_CASES[name]
+    cfg, d = _harness.kpp_inputs(**kw)
+    jc = jax_cfg(cfg)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    t = {k: torch.as_tensor(v) for k, v in d.items()}
+    jgrid, jstate, jfrc = _ns(j, own)
+    kv, kt, ks = jkpp.interior_mix(j["u"], j["v"], j["bvf"], j["z_r"],
+                                   j["z_w"], jgrid, jc)
+    ref = jkpp.lmd_kpp(j["u"], j["v"], j["t"], j["bvf"], j["z_r"], j["z_w"],
+                       j["hz"], kv, kt, ks, jstate.swrf, jfrc, jstate.hbls,
+                       jstate.hbbl, jgrid, jc, first_step)
+    tgrid, tstate, tfrc = _ns(t, own)
+    before = cuda_kpp.vmix_update.launches
+    got = cuda_kpp.vmix_update(tstate, t["u"], t["v"], t["t"], t["bvf"],
+                               t["z_r"], t["z_w"], t["hz"], tfrc, tgrid,
+                               cfg, first_step)
+    assert cuda_kpp.vmix_update.launches == before      # CPU: no launch
+    for field in ref._fields:
+        _close(getattr(got, field), getattr(ref, field))
