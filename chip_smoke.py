@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's three CUDA kernels from the sources in this checkout
-and drives its main paths through `roms_tpu_torch.driver.run`, in phases;
+and drives its main paths through `roms_tpu_torch.driver.run` (the
+real-data cases through `Experiment.run`), in phases;
 each prints its own lines and the first failure raises, so the exit code
 is nonzero:
 
@@ -47,12 +48,33 @@ is nonzero:
      them and carried in the JSON line as device_ms and host_ms.
   7. the reference's default size: bench_production at 920x480x60, nt=34,
      float32, 1 warm-up + 2 timed steps, all finite; peak device memory.
+  8. point sources in float64: Rivers_ana and Pipes_ana (100x100x10), 20
+     steps through driver.run against tests/data/{rivers,pipes}_ana_oracle
+     .txt at the tolerances of tests/test_rivers_regression.py and
+     tests/test_pipes_regression.py (round-off on the first steps, then the
+     0.5 % / 2 % envelope); the river volume within 5 % of Q*t and the
+     land dry.
+  9. real data in float64: Flux_frc, Rivers_real and Pipes_real
+     (199x99x50, nt=2) built from the USWC inputs that `cases/uswc.py`
+     writes into a temporary directory under build/, 20 steps through
+     `Experiment.run` against tests/data/{case}_oracle.txt and
+     {case}_mass_oracle.txt at the tolerances of
+     tests/realcase_utils.py:check_against_oracle.
+ 10. real data in float32 at the same size: 2 warm-up + 10 timed steps
+     each, all finite; ms/step, gridpoint-steps/s, peak device memory and
+     the host time a step spends in `forcing_fn` (two-slot interpolation
+     and the host-to-device copies); each kernel the case's gates select
+     timed against its plain version on the run's final state, as in
+     phases 5-6 (with the sponge's diff2 in the fused t3dmix).
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
-before it and reads them just after.  The line before the last is a JSON
-object {"kernels": [...]} whose launches and times come from phase 6; the
-last line is {"ok": true, "device": {...}}.  Imports the port, torch and
-numpy: nothing of JAX and nothing of the JAX package.
+before it and reads them just after, and holds them to what the
+configuration's gates select: the tracer kernel twice a step where
+`cuda_tracer.usable` admits the configuration (not for river sources),
+the solve four times, KPP twice under lmd_kpp.  The line before the last
+is a JSON object {"kernels": [...]} whose launches and times come from
+phase 6; the last line is {"ok": true, "device": {...}}.  Imports the
+port, torch and numpy: nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +85,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -321,8 +344,13 @@ def read_counts():
     return tuple(w.launches for w in _wrappers())
 
 
-def check_counts(counts, nsteps, kpp, what):
-    expected = (2 * nsteps, 4 * nsteps, 2 * nsteps if kpp else 0)
+def check_counts(counts, nsteps, cfg, what):
+    """Launches the configuration's gates select: the tracer kernel twice
+    a step where `cuda_tracer.usable` admits the configuration (none for
+    river sources), the solve four times, KPP twice under lmd_kpp."""
+    from roms_tpu_torch.ops import cuda_tracer
+    expected = (2 * nsteps if cuda_tracer.usable(cfg) else 0, 4 * nsteps,
+                2 * nsteps if cfg.lmd_kpp else 0)
     if counts != expected:
         raise AssertionError(f"{what}: kernel launches (tracer, solve, kpp) "
                              f"= {counts}, expected {expected}")
@@ -344,7 +372,7 @@ def phase_oracle(device):
     _, rows = run(grid, st, frc, cfg, nsteps=20)
     torch.cuda.synchronize()
     counts = read_counts()
-    check_counts(counts, 20, False, "oracle run")
+    check_counts(counts, 20, cfg, "oracle run")
     oracle = np.loadtxt(ORACLE)
     if rows.shape != oracle.shape:
         raise AssertionError(f"oracle: {rows.shape} rows vs {oracle.shape}")
@@ -382,7 +410,7 @@ def phase_production_f64(device):
         if where != "cpu":
             torch.cuda.synchronize()
             counts = read_counts()
-            check_counts(counts, nsteps, True, "production f64 run")
+            check_counts(counts, nsteps, cfg, "production f64 run")
         out[str(where)] = bridge.to_numpy(st)
     ref, got = out["cpu"], out[str(device)]
     loose = bench_production.CONDITIONED_TOL
@@ -500,22 +528,19 @@ def bound(nbytes, ops, dtype):
 
 def kernel_timings(grid, st, frc, cfg, what, counts):
     """Each kernel of the step against its plain version on the state of a
-    full-width run, at the main path's shapes; returns the JSON rows of the
-    kernels the configuration runs."""
+    full-width run, at the main path's shapes, with the t3dmix inputs the
+    corrector reads (`stepper.tracer_mix`); returns the JSON rows of the
+    kernels the configuration's gates select."""
     from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer, eos, vmix
     from roms_tpu_torch.ops.kinematics import hz_u
     from roms_tpu_torch.parallel.halo import shift
-    from roms_tpu_torch.stepper import AM3_CRV
+    from roms_tpu_torch.stepper import AM3_CRV, tracer_mix
     dtype = st.t.dtype
     nt, nz, jy, ix = st.t.shape
     col = jy * ix
     rows = []
     pmn = grid.pm * grid.pn
-    mix = None
-    if cfg.ts_dif2 and cfg.tnu2 != 0.0:
-        mix = {"diff2": torch.full((nt, jy, ix), cfg.tnu2, dtype=dtype,
-                                   device=st.t.device),
-               "pmon_u": grid.pmon_u, "pnom_v": grid.pnom_v}
+    mix = tracer_mix(grid, cfg, st.t)
     # the corrector reads Hz(n) and a distinct Hz(n+1), as the main path
     # does (stepper.py, the corrector's tracer_stage call)
     gen = torch.Generator(device=st.hz.device).manual_seed(0)
@@ -555,19 +580,20 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
     so_kw = dict(bottom_drag_coeff=0.5 * (rd + shift(rd, 0, -1)))
     so_ops = 10 * nz * col
 
-    # both tracer rows are the one kernel and its one launch count
-    cases = [("tracer_stage", cuda_tracer.tracer_stage,
-              cuda_tracer.tracer_stage_plain, tr_args, tr_kw, tr_ops,
-              "roms_tpu_torch/csrc/tracer_stage.cu",
-              "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
-             ("tracer_stage_pred", cuda_tracer.tracer_stage,
-              cuda_tracer.tracer_stage_plain, pr_args, {}, tr_ops,
-              "roms_tpu_torch/csrc/tracer_stage.cu",
-              "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
-             ("momentum_solve", cuda_solve.momentum_implicit,
+    cases = [("momentum_solve", cuda_solve.momentum_implicit,
               cuda_solve.momentum_implicit_plain, so_args, so_kw, so_ops,
               "roms_tpu_torch/csrc/momentum_solve.cu",
               "roms_tpu/ops/pallas_solve.py:66", counts[1])]
+    if cuda_tracer.usable(cfg):
+        # both tracer rows are the one kernel and its one launch count
+        cases[:0] = [("tracer_stage", cuda_tracer.tracer_stage,
+                      cuda_tracer.tracer_stage_plain, tr_args, tr_kw, tr_ops,
+                      "roms_tpu_torch/csrc/tracer_stage.cu",
+                      "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
+                     ("tracer_stage_pred", cuda_tracer.tracer_stage,
+                      cuda_tracer.tracer_stage_plain, pr_args, {}, tr_ops,
+                      "roms_tpu_torch/csrc/tracer_stage.cu",
+                      "roms_tpu/ops/pallas_tracer.py:321", counts[0])]
     if cfg.lmd_kpp:
         bvf = eos.rho_eos(st.t, st.z_r, st.z_w, st.hz, grid.rmask, cfg,
                           need_bvf=True).bvf
@@ -624,17 +650,31 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
     return rows
 
 
-def full_width(case, cfg, device, warm, nsteps, what, timings):
-    """Drive `case` at `cfg` in float32 through driver.run: warm-up steps,
-    then timed steps between two synchronizes; checks finiteness and the
-    launch counts; with `timings`, returns the kernels' JSON rows."""
-    from roms_tpu_torch.driver import run
+def analytic(case, cfg, device):
+    """A start for `full_width`: `case.setup` in float32 as an Experiment
+    with no forcing files."""
+    from roms_tpu_torch.experiment import Experiment
+
+    def start():
+        grid, st, frc = case.setup(cfg, dtype=torch.float32, device=device)
+        return Experiment(cfg=cfg, grid=grid, state=st, forcing0=frc,
+                          forcing_fn=None, rc=None)
+    return start
+
+
+def full_width(start, warm, nsteps, what, timings):
+    """Drive the Experiment that `start()` returns through Experiment.run:
+    warm-up steps, then timed steps between two synchronizes; checks
+    finiteness and the launch counts; prints the host time a step spent
+    in `forcing_fn` where the run has one; with `timings`, returns the
+    kernels' JSON rows."""
     gc.collect()        # an earlier phase's tensors held by reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    grid, st, frc = case.setup(cfg, dtype=torch.float32, device=device)
+    exp = start()
+    cfg = exp.cfg
     torch.cuda.synchronize()
-    clock = {}
+    clock, spent, last = {}, [], [exp.forcing0]
 
     def mark(_, iic):
         # the host clock brackets steps warm+1 .. warm+nsteps
@@ -642,23 +682,46 @@ def full_width(case, cfg, device, warm, nsteps, what, timings):
             torch.cuda.synchronize()
             clock[iic] = time.perf_counter()
 
-    reset_counts()
-    st, _ = run(grid, st, frc, cfg, nsteps=warm + nsteps,
-                collect_diag=False, step_hook=mark)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    check_counts(counts, warm + nsteps, cfg.lmd_kpp, what)
+    if exp.forcing_fn is not None:
+        fn = exp.forcing_fn
+
+        def forcing_fn(t, base):
+            # the device is drained first, so the host clock holds the
+            # interpolation and the host-to-device copies alone (each copy
+            # from pageable memory waits for the stream anyway)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last[0] = fn(t, base)
+            spent.append(time.perf_counter() - t0)
+            return last[0]
+        exp.forcing_fn = forcing_fn
+    try:
+        reset_counts()
+        st, _ = exp.run(nsteps=warm + nsteps, collect_diag=False,
+                        step_hook=mark)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        if exp.fileset is not None:
+            exp.fileset.close()
+    check_counts(counts, warm + nsteps, cfg, what)
     check_finite(st, what)
     wall = clock[warm + nsteps] - clock[warm]
     peak = torch.cuda.max_memory_allocated() / 2**30
+    frc = ""
+    if spent:
+        frc_s = sum(spent[warm:warm + nsteps])
+        frc = (f"forcing_fn {1e3 * frc_s / nsteps:.3f} ms/step on the host "
+               f"({frc_s / wall:.4f} of the step); ")
     say(f"[{what}] {cfg.nx}x{cfg.ny}x{cfg.nz} nt={cfg.nt} f32: "
         f"{1e3 * wall / nsteps:.3f} ms/step, "
         f"{cfg.nx * cfg.ny * cfg.nz * nsteps / wall:.6e} gridpoint-steps/s "
-        f"over {nsteps} steps after {warm} warm-up; launches tracer "
+        f"over {nsteps} steps after {warm} warm-up; {frc}launches tracer "
         f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}; state finite; "
         f"peak device memory {peak:.3f} GiB")
-    rows = kernel_timings(grid, st, frc, cfg, what, counts) if timings \
-        else None
+    # the kernels are timed on the forcing of the last step
+    rows = kernel_timings(exp.grid, st, last[0], cfg, what, counts) \
+        if timings else None
     return rows
 
 
@@ -666,21 +729,168 @@ def full_width(case, cfg, device, warm, nsteps, what, timings):
 def phase_filament_full_width(device):
     from roms_tpu_torch.cases import filament
     cfg = filament.config().replace(nx=512, ny=256, nz=60)  # bench.py:71-74
-    full_width(filament, cfg, device, 2, 10, "5 filament", True)
+    full_width(analytic(filament, cfg, device), 2, 10, "5 filament", True)
 
 
 def phase_production_full_width(device):
     from roms_tpu_torch.cases import bench_production
     cfg = bench_production.config(nx=384, ny=192, nz=60, nt=34)  # bench.py:66
-    return full_width(bench_production, cfg, device, 2, 10,
+    return full_width(analytic(bench_production, cfg, device), 2, 10,
                       "6 production", True)
 
 
 def phase_reference_size(device):
     from roms_tpu_torch.cases import bench_production
     cfg = bench_production.config(nx=920, ny=480, nz=60, nt=34)
-    full_width(bench_production, cfg, device, 1, 2, "7 production 920",
-               False)
+    full_width(analytic(bench_production, cfg, device), 1, 2,
+               "7 production 920", False)
+
+
+# ------------------------------------------------------------------ phase 8
+DATA = os.path.join(HERE, "tests", "data")
+# tolerances of tests/test_rivers_regression.py and
+# tests/test_pipes_regression.py: (rtol of row 1 columns 3-4, rtol of row 2
+# columns 1-4, envelope of every later row); Pipes_ana also holds row 0's
+# columns 3-4 at 1e-11, Rivers_ana requires row 0 to be exactly zero
+POINT_TOL = {"rivers_ana": (1e-9, 1e-4, 5e-3),
+             "pipes_ana": (1e-9, 1e-5, 2e-2)}
+
+
+def worst_rel(rows, oracle, cols=(1, 2, 3, 4)):
+    """{column: max relative deviation from the oracle where it is not 0}."""
+    out = {}
+    for col in cols:
+        sel = oracle[:, col] != 0.0
+        out[col] = float((np.abs(rows[sel, col] - oracle[sel, col])
+                          / np.abs(oracle[sel, col])).max())
+    return out
+
+
+def phase_point_sources(device):
+    from roms_tpu_torch.cases import pipes_ana, rivers_ana
+    from roms_tpu_torch.driver import run
+    for name, case in (("rivers_ana", rivers_ana), ("pipes_ana", pipes_ana)):
+        cfg = case.config(ntimes=20)
+        grid, st, frc = case.setup(cfg, dtype=torch.float64, device=device)
+        reset_counts()
+        st, rows = run(grid, st, frc, cfg, nsteps=20)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(counts, 20, cfg, f"8 {name}")
+        oracle = np.loadtxt(os.path.join(DATA, f"{name}_oracle.txt"))
+        if rows.shape != oracle.shape:
+            raise AssertionError(f"{name}: {rows.shape} rows vs "
+                                 f"{oracle.shape}")
+        r1, r2, env = POINT_TOL[name]
+        if name == "rivers_ana":
+            ok0 = np.all(rows[0][1:] == 0.0)
+        else:
+            ok0 = np.allclose(rows[0][3:5], oracle[0][3:5], rtol=1e-11,
+                              atol=0)
+        if not (ok0 and np.allclose(rows[1][3:5], oracle[1][3:5], rtol=r1,
+                                    atol=0)
+                and np.allclose(rows[2][1:5], oracle[2][1:5], rtol=r2,
+                                atol=0)):
+            raise AssertionError(f"{name}: the first steps deviate from "
+                                 f"the oracle beyond round-off")
+        worst = worst_rel(rows, oracle)
+        if max(worst.values()) >= env:
+            raise AssertionError(f"{name}: max rel deviation {worst} "
+                                 f"outside the {env} envelope")
+        note = ""
+        if name == "rivers_ana":
+            h = cfg.halo
+            zeta = st.zeta[h:-h, h:-h]
+            da = (grid.rmask / (grid.pm * grid.pn))[h:-h, h:-h]
+            vol = float(torch.sum(zeta * da))
+            expected = rivers_ana.RIV_VOL * cfg.dt * 20
+            land = grid.rmask[h:-h, h:-h] == 0.0
+            if abs(vol - expected) / expected >= 0.05:
+                raise AssertionError(f"rivers_ana: volume {vol:.6e} m^3 vs "
+                                     f"Q*t {expected:.6e}")
+            if bool((zeta[land] != 0.0).any()) or \
+                    not bool(torch.isfinite(st.t).all()):
+                raise AssertionError("rivers_ana: land not dry or t not "
+                                     "finite")
+            note = (f"; volume {vol:.6e} m^3 vs Q*t {expected:.6e} "
+                    f"({vol / expected - 1.0:+.3e}), land dry")
+        say(f"[8 point sources] {name} 100x100x10 f64, 20 steps vs "
+            f"tests/data/{name}_oracle.txt: max rel dev KE "
+            f"{worst[1]:.3e}, barotropic KE {worst[2]:.3e}, CFL "
+            f"{worst[3]:.3e}, vertical CFL {worst[4]:.3e} (envelope {env})"
+            f"{note}; launches tracer {counts[0]}, solve {counts[1]}, "
+            f"kpp {counts[2]}")
+
+
+# ------------------------------------------------------------ phases 9-10
+# tests/realcase_utils.py:check_against_oracle: per-column rtol, and 1e-9
+# on the final tracer masses
+REAL_RTOL = (1e-9, 1e-8, 1e-9, 1e-8)
+REAL_CASES = ("flux_frc", "rivers_real", "pipes_real")
+
+
+def tracer_masses(st, grid):
+    """Interior content sum(t * Hz * rmask / (pm*pn)) per tracer, in
+    float64 on the host, as tests/realcase_utils.py:tracer_masses."""
+    t = st.t.double().cpu().numpy()[..., 2:-2, 2:-2]
+    hz = st.hz.double().cpu().numpy()[..., 2:-2, 2:-2]
+    rmask = grid.rmask.double().cpu().numpy()[2:-2, 2:-2]
+    da = (1.0 / (grid.pm * grid.pn)).double().cpu().numpy()[2:-2, 2:-2]
+    t = np.where((rmask > 0.0)[None, None], t, 0.0)
+    hz = np.where((rmask > 0.0)[None], hz, 0.0)
+    return (t * hz[None] * (rmask * da)[None, None]).sum(axis=(1, 2, 3))
+
+
+def real_case(name):
+    import importlib
+    return importlib.import_module(f"roms_tpu_torch.cases.{name}")
+
+
+def phase_real_f64(device, workdir):
+    for name in REAL_CASES:
+        exp = real_case(name).build(workdir, ntimes=20, dtype=torch.float64,
+                                    device=device)
+        try:
+            reset_counts()
+            st, rows = exp.run(nsteps=20)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            exp.fileset.close()
+        check_counts(counts, 20, exp.cfg, f"9 {name}")
+        oracle = np.loadtxt(os.path.join(DATA, f"{name}_oracle.txt"))
+        if rows.shape != oracle.shape:
+            raise AssertionError(f"{name}: {rows.shape} rows vs "
+                                 f"{oracle.shape}")
+        worst = worst_rel(rows, oracle)
+        for col, rtol in zip((1, 2, 3, 4), REAL_RTOL):
+            if not (np.allclose(rows[:, col], oracle[:, col], rtol=rtol,
+                                atol=1e-300)
+                    and np.isclose(rows[:, col].sum(), oracle[:, col].sum(),
+                                   rtol=rtol)):
+                raise AssertionError(f"{name}: column {col} max rel dev "
+                                     f"{worst[col]:.3e} > {rtol}")
+        masses = tracer_masses(st, exp.grid)
+        m_oracle = np.atleast_1d(np.loadtxt(
+            os.path.join(DATA, f"{name}_mass_oracle.txt")))
+        m_rel = float((np.abs(masses - m_oracle) / np.abs(m_oracle)).max())
+        if not np.allclose(masses, m_oracle, rtol=1e-9, atol=0):
+            raise AssertionError(f"{name}: tracer masses max rel dev "
+                                 f"{m_rel:.3e} > 1e-9")
+        say(f"[9 real data] {name} 199x99x50 f64, 20 steps vs "
+            f"tests/data/{name}_oracle.txt: max rel dev KE {worst[1]:.3e}, "
+            f"barotropic KE {worst[2]:.3e}, CFL {worst[3]:.3e}, vertical "
+            f"CFL {worst[4]:.3e} (rtol {REAL_RTOL}), tracer masses "
+            f"{m_rel:.3e} (1e-9); launches tracer {counts[0]}, solve "
+            f"{counts[1]}, kpp {counts[2]}")
+
+
+def phase_real_f32(device, workdir, warm=2, nsteps=10):
+    for name in REAL_CASES:
+        def start(name=name):
+            return real_case(name).build(workdir, ntimes=warm + nsteps,
+                                         dtype=torch.float32, device=device)
+        full_width(start, warm, nsteps, f"10 {name}", True)
 
 
 def main():
@@ -694,6 +904,13 @@ def main():
     phase_filament_full_width(device)
     kernels = phase_production_full_width(device)
     phase_reference_size(device)
+    phase_point_sources(device)
+    # the USWC inputs (106 MB) go to the ignored build/ of this checkout
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="uswc_", dir=build) as workdir:
+        phase_real_f64(device, workdir)
+        phase_real_f32(device, workdir)
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,8 @@ reference: main.F:55-83)."""
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 
 from roms_tpu_torch.config import ModelConfig
@@ -10,6 +12,29 @@ from roms_tpu_torch.diag import compute_diag
 from roms_tpu_torch.monitor import check_blowup
 from roms_tpu_torch.ops.weights import set_weights
 from roms_tpu_torch.stepper import step
+
+
+def _accepts_state(fn) -> bool:
+    """Does the set_forces hook take the 3-argument form f(t, base,
+    state)?  Decided by signature, so an error raised inside a 3-argument
+    hook propagates instead of demoting the call to the 2-argument form."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return True
+    kinds = [p.kind for p in sig.parameters.values()]
+    npos = sum(k in (inspect.Parameter.POSITIONAL_ONLY,
+                     inspect.Parameter.POSITIONAL_OR_KEYWORD) for k in kinds)
+    return npos >= 3 or inspect.Parameter.VAR_POSITIONAL in kinds
+
+
+def _call_forcing_fn(fn, t, forcing, state):
+    """set_forces hook: the 3-argument form f(t, base, state) where the
+    hook takes it (bulk forcing reads the SST, reference: bulk_frc.F),
+    else f(t, base)."""
+    if _accepts_state(fn):
+        return fn(t, forcing, state)
+    return fn(t, forcing)
 
 
 def _diag_due(iic: int, ninfo: int) -> bool:
@@ -27,12 +52,16 @@ def _diag_due(iic: int, ninfo: int) -> bool:
 
 def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
         collect_diag: bool = True, print_diag: bool = False,
-        blowup_check: bool = True, step_hook=None, ninfo: int = 1):
+        blowup_check: bool = True, forcing_fn=None, step_hook=None,
+        ninfo: int = 1):
     """Advance `nsteps` baroclinic steps; return (state, diag_rows).
 
     diag_rows[i] = (step_index, avke, avke2b, cu_adv, cu_w) as in the
     reference log table (reference: diag.F:540-552).  blowup_check: NaN/Inf
-    watchdog on the diagnostics (reference: diag.F:624-634).  step_hook:
+    watchdog on the diagnostics (reference: diag.F:624-634).  forcing_fn:
+    optional set_forces hook f(time_seconds, base_forcing[, state]) ->
+    Forcing, called before every step at t0 + i*dt, t0 the state's time
+    read once (reference: main.F:385).  step_hook:
     optional f(state, step_index) after every step.  Steps between
     diagnostics points never wait on the device.
     """
@@ -54,9 +83,12 @@ def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
             if blowup_check:
                 check_blowup(row[1:], iic)
 
+    t0 = float(state.time)   # one sync up front; model time advances by dt
     log(state, 0)
     for i in range(nsteps):
-        state = step(state, forcing, grid, w1, w2, cfg, first_step=(i == 0))
+        frc = forcing if forcing_fn is None else _call_forcing_fn(
+            forcing_fn, t0 + i * cfg.dt, forcing, state)
+        state = step(state, frc, grid, w1, w2, cfg, first_step=(i == 0))
         log(state, i + 1)
         if step_hook is not None:
             step_hook(state, i + 1)

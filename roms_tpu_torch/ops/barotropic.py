@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from roms_tpu_torch.config import ModelConfig
-from roms_tpu_torch.ops import bc
+from roms_tpu_torch.ops import bc, rivers
 from roms_tpu_torch.parallel.halo import shift
 
 
@@ -119,8 +119,6 @@ def substep(fs: FastState, coeffs, w1: float, w2: float, rufrc, rvfrc,
     With `first` also converts the 3D forcing (rufrc -= rubar), applies
     the PGF_FB_CORRECTION and returns (fs, (rufrc, rvfrc, du_avg_bak,
     dv_avg_bak))."""
-    if cfg.river_source or cfg.pipe_source:
-        raise NotImplementedError("point sources: ROADMAP Queue 1 item 8")
     h = grid.h
     dtfast = cfg.dtfast
     fwd, fwd1, fwd2 = coeffs["fwd"], coeffs["fwd1"], coeffs["fwd2"]
@@ -138,6 +136,11 @@ def substep(fs: FastState, coeffs, w1: float, w2: float, rufrc, rvfrc,
     zeta_new = (fs.z_stp + dtfast * grid.pm * grid.pn
                 * (duon - shift(duon, 0, 1) + dvom - shift(dvom, 1, 0))
                 + dtfast * forcing.swflx)
+    if cfg.pipe_source:
+        # pipe volume input to the free surface (reference: :155-159)
+        zeta_new = zeta_new + torch.where(
+            forcing.pipe_idx > 0,
+            dtfast * grid.pm * grid.pn * forcing.pipe_flx, 0.0)
     if cfg.masking:
         zeta_new = zeta_new * grid.rmask
     zeta_new = bc.zetabc(zeta_new, fs.z_stp, grid, cfg, forcing.bry)
@@ -226,6 +229,11 @@ def substep(fs: FastState, coeffs, w1: float, w2: float, rufrc, rvfrc,
         dv_avg_bak_new = dv_avg_bak
         du_avg1 = fs.du_avg1 + incr_u
         dv_avg1 = fs.dv_avg1 + incr_v
+
+    # river barotropic overwrite (reference: :531-554)
+    if cfg.river_source:
+        ubar_new, vbar_new, du_avg1, dv_avg1 = rivers.overwrite_barotropic(
+            ubar_new, vbar_new, du_avg1, dv_avg1, dnew, forcing, grid)
 
     # one halo refresh for the three 2D fields
     zuv = halo_fill(torch.stack([zeta_new, ubar_new, vbar_new]))

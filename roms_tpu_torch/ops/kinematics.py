@@ -81,7 +81,12 @@ _R4CMX = 0.25 / (1.0 - _CMNX)
 
 
 def pipe_profile_3d(forcing, nz: int):
-    raise NotImplementedError("pipe sources: ROADMAP Queue 1 item 8")
+    """Per-cell vertical source distribution pipe_flx * pipe_prf[pipe_idx]
+    (nz, jy, ix) (reference: omega.F:102-108, step3d_t_ISO.F:927-934)."""
+    npip = forcing.pipe_prf.shape[0]
+    idx = forcing.pipe_idx.long().clamp(0, npip - 1)
+    cell_prf = forcing.pipe_prf[idx].movedim(-1, 0)   # (nz, jy, ix)
+    return cell_prf * forcing.pipe_flx[None]
 
 
 def omega(flx_u, flx_v, z_w, hz, swflx, grid, dtau: float,

@@ -1,12 +1,15 @@
 """Where the time of one baroclinic step goes, on one CUDA device.
 
-    python3 -m roms_tpu_torch.profile_step [--case filament|production]
+    python3 -m roms_tpu_torch.profile_step [--case CASE]
 
 Runs Filament at 512x256x60 (the shape of bench.py:71-74 and
-chip_smoke.py's phase 5) or the production-physics case at 384x192x60
-with nt=34 (bench.py:66, chip_smoke.py's phase 6) in float32 through
-`driver.run`, without diagnostics, and reads the step in three windows
-of one run, after 2 warm-up steps:
+chip_smoke.py's phase 5), the production-physics case at 384x192x60
+with nt=34 (bench.py:66, chip_smoke.py's phase 6), or one of the
+real-data cases flux_frc, rivers_real and pipes_real at 199x99x50, nt=2
+(chip_smoke.py's phase 10; assembled from the inputs `cases/uswc.py`
+writes into a temporary directory under the checkout's build/), in
+float32 through `driver.run`, without diagnostics, and reads the step
+in three windows of one run, after 2 warm-up steps:
 
   wall    three windows of 5 steps, host clock between two
           synchronizes: ms/step as chip_smoke.py reads it;
@@ -17,7 +20,11 @@ of one run, after 2 warm-up steps:
   layers  2 steps with each layer of the step (fast loop, momentum
           r.h.s., prsgrd, rho_eos, omega, set_huv/set_huv1, visc3d, the
           3D boundary conditions, the three hand kernels) bracketed by
-          synchronizes.  The brackets take away the
+          synchronizes; where the tracer kernel does not cover the
+          configuration (river sources), the batched tracer branch's
+          functions (horizontal and vertical fluxes, the river flux fix,
+          the implicit solve, t3dmix) too, and a real-data case's
+          `forcing_fn`.  The brackets take away the
           overlap of host and device, so these steps are slower than the
           wall windows; the shares are what the layers weigh.
 
@@ -27,17 +34,22 @@ Each reading is a line of its own on stdout.
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 
 import torch
 
 from roms_tpu_torch import stepper
-from roms_tpu_torch.cases import bench_production, filament
+from roms_tpu_torch.cases import (bench_production, filament, flux_frc,
+                                  pipes_real, rivers_real)
 from roms_tpu_torch.driver import run
+from roms_tpu_torch.ops import advection as adv
 from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
-                                cuda_tracer, eos, hmix, kinematics, prsgrd)
+                                cuda_tracer, eos, hmix, kinematics, prsgrd,
+                                rivers, vmix)
 
 WARM, WALL_WINDOWS, WALL_STEPS, PROF_STEPS, LAYER_STEPS = 2, 3, 5, 2, 2
 TOP = 12    # kernels listed by name
@@ -52,10 +64,19 @@ LAYERS = (
     (bc, "v3dbc"), (bc, "t3dbc"), (cuda_tracer, "tracer_stage"),
     (cuda_solve, "momentum_implicit"), (cuda_kpp, "vmix_update"),
 )
+# the batched tracer branch, bracketed only where the tracer kernel does
+# not cover the configuration: its plain version calls the first three
+BATCHED = ((adv, "horiz_tracer_flux"), (adv, "vert_tracer_flux_spline"),
+           (vmix, "tracer_implicit_all"), (rivers, "tracer_flux_fix_all"),
+           (hmix, "t3dmix"))
+# the real-data cases take their configuration from their input files
 CASES = {
     "filament": (filament, filament.config().replace(nx=512, ny=256, nz=60)),
     "production": (bench_production,
                    bench_production.config(nx=384, ny=192, nz=60, nt=34)),
+    "flux_frc": (flux_frc, None),
+    "rivers_real": (rivers_real, None),
+    "pipes_real": (pipes_real, None),
 }
 
 
@@ -64,10 +85,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _bracket(device, spent):
-    """Wrap each layer so that its calls are timed between synchronizes;
-    returns the function that puts the originals back."""
-    originals = [(mod, name, getattr(mod, name)) for mod, name in LAYERS]
+def _bracket(device, spent, layers):
+    """Wrap each of `layers` so that its calls are timed between
+    synchronizes; returns the function that puts the originals back."""
+    originals = [(mod, name, getattr(mod, name)) for mod, name in layers]
     for mod, name, fn in originals:
         def timed(*a, _fn=fn, _name=name, **k):
             _sync(device)
@@ -99,13 +120,23 @@ def _device_kernels(prof):
     return kernels
 
 
-def profile(cfg, device, dtype=torch.float32, say=print, case=filament):
+def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
+            workdir=None):
     """Run the three windows on `case` (a module of roms_tpu_torch.cases)
-    at `cfg`; returns the readings."""
-    grid, st, frc = case.setup(cfg, dtype=dtype, device=device)
+    at `cfg`; a real-data case (one with `build`) is assembled from the
+    inputs it writes under `workdir`, at its own configuration, and runs
+    with its `forcing_fn`; returns the readings."""
     w_end = WARM + WALL_WINDOWS * WALL_STEPS
     p_end = w_end + PROF_STEPS
     l_end = p_end + LAYER_STEPS
+    frc_fn = fileset = None
+    if hasattr(case, "build"):
+        exp = case.build(workdir, ntimes=l_end, dtype=dtype, device=device)
+        grid, st, frc, cfg = exp.grid, exp.state, exp.forcing0, exp.cfg
+        frc_fn, fileset = exp.forcing_fn, exp.fileset
+    else:
+        grid, st, frc = case.setup(cfg, dtype=dtype, device=device)
+    layers = LAYERS if cuda_tracer.usable(cfg) else LAYERS + BATCHED
     marks, spent, out = {}, defaultdict(float), {}
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -119,18 +150,31 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament):
         _sync(device)
         if iic == p_end:
             prof.stop()
-            restore = _bracket(device, spent)
+            restore = _bracket(device, spent, layers)
         marks[iic] = time.perf_counter()
         if iic == w_end:
             prof.start()
 
+    def forcing_fn(t, base):
+        # a layer of its own in the bracketed steps
+        if restore is None:
+            return frc_fn(t, base)
+        _sync(device)
+        t0 = time.perf_counter()
+        out = frc_fn(t, base)
+        _sync(device)
+        spent["forcing_fn"] += time.perf_counter() - t0
+        return out
+
     _sync(device)
     try:
         run(grid, st, frc, cfg, nsteps=l_end, collect_diag=False,
-            step_hook=hook)
+            step_hook=hook, forcing_fn=None if frc_fn is None else forcing_fn)
     finally:
         if restore is not None:
             restore()
+        if fileset is not None:
+            fileset.close()
 
     shape = (f"{case.__name__.rsplit('.', 1)[-1]} {cfg.nx}x{cfg.ny}x{cfg.nz} "
              f"nt={cfg.nt} {str(dtype)[6:]}")
@@ -168,9 +212,9 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament):
     rest = step_ms
     for name, ms in sorted(out["layers_ms"].items(), key=lambda kv: -kv[1]):
         rest -= ms
-        say(f"[layers]   {name:18s} {ms:9.3f} ms/step "
+        say(f"[layers]   {name:24s} {ms:9.3f} ms/step "
             f"{100 * ms / step_ms:6.2f} %")
-    say(f"[layers]   {'rest':18s} {rest:9.3f} ms/step "
+    say(f"[layers]   {'rest':24s} {rest:9.3f} ms/step "
         f"{100 * rest / step_ms:6.2f} %")
     return out
 
@@ -185,7 +229,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     case, cfg = CASES[args.case]
-    profile(cfg, torch.device("cuda", 0), case=case)
+    # the real-data inputs (106 MB) go to the ignored build/ of the checkout
+    build = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="uswc_", dir=build) as workdir:
+        profile(cfg, torch.device("cuda", 0), case=case, workdir=workdir)
 
 
 if __name__ == "__main__":

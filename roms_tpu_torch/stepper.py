@@ -3,12 +3,16 @@ forward-backward barotropic sub-cycle (port of roms_tpu/stepper.py;
 reference: src/main.F:333-520, pre_step3d4S.F, step3d_uv1.F,
 step3d_uv2.F, step3d_t_ISO.F).
 
-The port keeps one path per kernel: both tracer stages go through
-`cuda_tracer.tracer_stage`, all four implicit momentum solves through
-`cuda_solve.momentum_implicit` and, under LMD_KPP, both vertical-mixing
-updates through `cuda_kpp.vmix_update`; each launches its CUDA kernel on
-the card and runs its plain version on the CPU.  Every feature the port
-does not carry yet raises NotImplementedError before any work is done.
+All four implicit momentum solves go through `cuda_solve.momentum_implicit`
+and, under LMD_KPP, both vertical-mixing updates through
+`cuda_kpp.vmix_update`.  Both tracer stages go through
+`cuda_tracer.tracer_stage` for every configuration that
+`cuda_tracer.usable` admits; the others (river sources) take the
+reference's batched tracer branch, whose river flux fix sits inside the
+stencil.  That one gate decides the tracer path: never the device, the
+dtype or a build.  Each wrapper launches its CUDA kernel on the card and
+runs its plain version on the CPU.  Every feature the port does not
+carry yet raises NotImplementedError before any work is done.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.grid import Grid
 from roms_tpu_torch.ops import advection as adv
 from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
-                                cuda_tracer, eos, hmix, kinematics, vmix)
+                                cuda_tracer, eos, hmix, kinematics, rivers,
+                                vmix)
 from roms_tpu_torch.ops import prsgrd as prsgrd_mod
 from roms_tpu_torch.ops.kinematics import hz_u, hz_v
 from roms_tpu_torch.parallel.halo import make_halo_fill, shift
@@ -32,8 +37,6 @@ AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
 def _unsupported(cfg: ModelConfig, forcing: Forcing, grid: Grid):
     """Names of the enabled features the port does not carry yet."""
     checks = (
-        ("river_source", cfg.river_source),
-        ("pipe_source", cfg.pipe_source),
         ("forcing.cdr", forcing.cdr is not None),
         ("bgc_model", cfg.bgc_model != "none"),
         ("adv_isoneutral", cfg.adv_isoneutral),
@@ -41,9 +44,44 @@ def _unsupported(cfg: ModelConfig, forcing: Forcing, grid: Grid):
         ("tracer_diagnostics", cfg.tracer_diagnostics),
         ("uv_diagnostics", cfg.uv_diagnostics),
         ("upscale_output", cfg.upscale_output),
-        ("tracer stage scope", not cuda_tracer.usable(cfg)),
     )
     return [name for name, on in checks if on]
+
+
+def _tracer_divergence(fx, fe, pmn):
+    return pmn[None] * (shift(fx, 0, 1) - fx + shift(fe, 1, 0) - fe)
+
+
+def _pipe_load(forcing: Forcing, pmn, cfg: ModelConfig):
+    """Hz-weighted tracer content the pipes add in one step, dt * pmn *
+    pipe_flx * pipe_prf(k) * pipe_trc, (nt, nz, jy, ix)
+    (reference: step3d_t_ISO.F:927-934)."""
+    src3d = kinematics.pipe_profile_3d(forcing, cfg.nz)
+    npip = forcing.pipe_trc.shape[0]
+    idx = forcing.pipe_idx.long().clamp(0, npip - 1)
+    trc_p = forcing.pipe_trc[idx].movedim(-1, 0)         # (nt, jy, ix)
+    return cfg.dt * pmn[None] * src3d[None] * trc_p[:, None]
+
+
+def _kpp_sources(state: OceanState, forcing: Forcing, ghat, wi,
+                 cfg: ModelConfig):
+    """Hz-weighted content the penetrating solar and nonlocal KPP terms
+    add in one step to T and, with ghat and salinity, to S (None
+    otherwise) (reference: step3d_t_ISO.F:961-1005)."""
+    nzz = cfg.nz
+    gsrc = forcing.srflx[None] * state.swrf[1:nzz]
+    if ghat is not None:
+        gsrc = gsrc - ghat[1:nzz] * (forcing.stflx[cfg.itemp]
+                                     - forcing.srflx)[None]
+    gw = torch.zeros_like(wi)
+    gw[1:nzz] = gsrc
+    src_t = cfg.dt * (gw[1:] - gw[:-1])
+    src_s = None
+    if cfg.salinity and ghat is not None:
+        gws = torch.zeros_like(wi)
+        gws[1:nzz] = -ghat[1:nzz] * forcing.stflx[cfg.isalt][None]
+        src_s = cfg.dt * (gws[1:] - gws[:-1])
+    return src_t, src_s
 
 
 def _uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig, scheme):
@@ -129,10 +167,26 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     hz_fwd = hz_n - flx_div
 
     own = (grid.own_w, grid.own_e, grid.own_s, grid.own_n)
-    t_half = cuda_tracer.tracer_stage(
-        state.t, state.t_prev, flx_u, flx_v, hz_n, flx_div, we, wi,
-        akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
-        cfg.ts_pred_scheme, dtau, cf_stp, cf_bak, False, "pred", own=own)
+    use_kernel = cuda_tracer.usable(cfg)
+    if use_kernel:
+        t_half = cuda_tracer.tracer_stage(
+            state.t, state.t_prev, flx_u, flx_v, hz_n, flx_div, we, wi,
+            akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+            cfg.ts_pred_scheme, dtau, cf_stp, cf_bak, False, "pred", own=own)
+    else:
+        # the reference's batched branch (roms_tpu/stepper.py:201-215)
+        fx, fe = adv.horiz_tracer_flux(state.t, flx_u, flx_v, grid, cfg,
+                                       cfg.ts_pred_scheme)
+        if cfg.river_source:
+            fx, fe = rivers.tracer_flux_fix_all(fx, fe, hz_n, zw_n, forcing,
+                                                grid)
+        t_rhs = (hz_bak * (cf_stp * state.t + cf_bak * state.t_prev)
+                 - dtau * _tracer_divergence(fx, fe, pmn))
+        fc = adv.vert_tracer_flux_spline(state.t, hz_n, we)
+        t_rhs = t_rhs - dtau * pmn[None] * (fc[:, 1:] - fc[:, :-1])
+        t_half = vmix.tracer_implicit_all(
+            t_rhs, hz_fwd, vmix.gather_akt(akt, cfg), wi, pmn, dtau,
+            grid.rmask, cfg, apply_mask=False)
 
     # momentum predictor
     ru, rv = _uv_rhs(state.u, state.v, flx_u, flx_v, hz_n, we, grid, cfg,
@@ -160,7 +214,11 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         0.5 * (wi + shift(wi, -1, 0)), dc0_v, dtau, forcing.svstr, cfg,
         bottom_drag_coeff=0.5 * (rd + shift(rd, -1, 0)))
 
-    # physical BCs + tracer ghost refresh (pre_step3d4S.F:493-550)
+    # river velocity overwrite, physical BCs, tracer ghost refresh
+    # (pre_step3d4S.F:493-550)
+    if cfg.river_source:
+        u_half, v_half = rivers.overwrite_uv(u_half, v_half, forcing, zw_n,
+                                             grid)
     u_half = bc.u3dbc(u_half, state.u, state.u, state.v, grid, cfg,
                       forcing.bry, pred_stage=True)
     v_half = bc.v3dbc(v_half, state.v, state.u, state.v, grid, cfg,
@@ -297,6 +355,11 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     flx_u_c = cf_u - dcu * mis2_u[None]
     flx_v_c = cf_v - dcv * mis2_v[None]
 
+    # river overwrite (reference: step3d_uv2.F:689-717)
+    if cfg.river_source:
+        u_new, v_new = rivers.overwrite_uv(u_new, v_new, forcing, zw_new,
+                                           grid)
+
     u_new, v_new = halo(u_new), halo(v_new)
     flx_u_c, flx_v_c = halo(flx_u_c), halo(flx_v_c)
     ubar_new, vbar_new = halo(ubar_new), halo(vbar_new)
@@ -306,40 +369,73 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
                           grid, cfg.dt, cfg, forcing)
     we, wi = halo(om.we), halo(om.wi)
 
-    t_sec_c = state.t
+    mix = tracer_mix(grid, cfg, t_half)
+    src_t = src_s = None
     if cfg.lmd_kpp:
-        # fold the penetrating-solar + nonlocal KPP terms into the base
-        # content (reference: step3d_t_ISO.F:961-1005)
-        nzz = cfg.nz
-        gsrc = forcing.srflx[None] * state.swrf[1:nzz]
-        if ghat is not None:
-            gsrc = gsrc - ghat[1:nzz] * (forcing.stflx[cfg.itemp]
-                                         - forcing.srflx)[None]
-        gw = torch.zeros_like(wi)
-        gw[1:nzz] = gsrc
-        t_sec_c = t_sec_c.clone()
-        t_sec_c[cfg.itemp] += cfg.dt * (gw[1:] - gw[:-1]) / hz_n
-        if cfg.salinity and ghat is not None:
-            gws = torch.zeros_like(wi)
-            gws[1:nzz] = -ghat[1:nzz] * forcing.stflx[cfg.isalt][None]
-            t_sec_c[cfg.isalt] += cfg.dt * (gws[1:] - gws[:-1]) / hz_n
-    mix = None
-    if cfg.ts_dif2 and (cfg.tnu2 != 0.0 or grid.diff2 is not None):
+        src_t, src_s = _kpp_sources(state, forcing, ghat, wi, cfg)
+    pipe = _pipe_load(forcing, pmn, cfg) if cfg.pipe_source else None
+
+    if use_kernel:
+        # the stage's base content is hz_n * t_sec_c: the pipe load and the
+        # solar + nonlocal KPP terms fold into t_sec_c (additive terms
+        # commute; reference: step3d_t_ISO.F:927-934, :961-1005).  The
+        # pipe load is folded here as the reference's batched branch adds
+        # it (roms_tpu/stepper.py:562-569); the JAX package's kernel
+        # branch (roms_tpu/stepper.py:488-534) leaves it out.
+        t_sec_c = state.t if pipe is None else state.t + pipe / hz_n
+        if src_t is not None:
+            if pipe is None:
+                t_sec_c = t_sec_c.clone()
+            t_sec_c[cfg.itemp] += src_t / hz_n
+            if src_s is not None:
+                t_sec_c[cfg.isalt] += src_s / hz_n
         # t3dmix folded into the corrector kernel
-        diff2 = grid.diff2
-        if diff2 is None:
-            diff2 = torch.full((cfg.nt,) + tuple(grid.h.shape), cfg.tnu2,
-                               dtype=t_half.dtype, device=t_half.device)
-        mix = {"diff2": diff2, "pmon_u": grid.pmon_u, "pnom_v": grid.pnom_v}
-    t_new = cuda_tracer.tracer_stage(
-        t_half, t_sec_c, flx_u_c, flx_v_c, hz_n, hz_new, we, wi,
-        akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
-        cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr",
-        stflx=forcing.stflx, mix=mix, own=own)
+        t_new = cuda_tracer.tracer_stage(
+            t_half, t_sec_c, flx_u_c, flx_v_c, hz_n, hz_new, we, wi,
+            akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+            cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr",
+            stflx=forcing.stflx, mix=mix, own=own)
+    else:
+        # the reference's batched branch (roms_tpu/stepper.py:535-607)
+        fx, fe = adv.horiz_tracer_flux(t_half, flx_u_c, flx_v_c, grid, cfg,
+                                       cfg.ts_corr_scheme)
+        if cfg.river_source:
+            fx, fe = rivers.tracer_flux_fix_all(fx, fe, hz_new, zw_new,
+                                                forcing, grid)
+        t_rhs = hz_n * state.t - cfg.dt * _tracer_divergence(fx, fe, pmn)
+        fc = adv.vert_tracer_flux_spline(t_half, hz_new, we)
+        t_rhs = t_rhs - cfg.dt * pmn[None] * (fc[:, 1:] - fc[:, :-1])
+        if pipe is not None:
+            t_rhs = t_rhs + pipe
+        t_rhs[:, -1] += cfg.dt * forcing.stflx    # (step3d_t_ISO.F:956-959)
+        if src_t is not None:
+            t_rhs[cfg.itemp] += src_t
+            if src_s is not None:
+                t_rhs[cfg.isalt] += src_s
+        t_new = vmix.tracer_implicit_all(
+            t_rhs, hz_new, vmix.gather_akt(akt, cfg), wi, pmn, cfg.dt,
+            grid.rmask, cfg, apply_mask=True)
+        if mix is not None:
+            # t3dmix from t_half (reference: src/t3dmix_S.F)
+            t_new = hmix.t3dmix(t_new, t_half, hz_new, grid, cfg,
+                                diff2=mix["diff2"])
     return _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half,
                            v_half, zeta_new, ubar_new, vbar_new, u_new,
                            v_new, flx_u_c, flx_v_c, we, wi, hz_new, zr_new,
                            zw_new, akv, akt, hbls, hbbl, fast)
+
+
+def tracer_mix(grid, cfg: ModelConfig, like):
+    """The corrector's t3dmix inputs, or None without TS_DIF2: diff2
+    (nt, jy, ix) from the sponge-enhanced grid.diff2 where present, else
+    cfg.tnu2 everywhere, in the dtype and on the device of `like`."""
+    if not (cfg.ts_dif2 and (cfg.tnu2 != 0.0 or grid.diff2 is not None)):
+        return None
+    diff2 = grid.diff2
+    if diff2 is None:
+        diff2 = torch.full((cfg.nt,) + tuple(grid.h.shape), cfg.tnu2,
+                           dtype=like.dtype, device=like.device)
+    return {"diff2": diff2, "pmon_u": grid.pmon_u, "pnom_v": grid.pnom_v}
 
 
 def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
@@ -348,7 +444,7 @@ def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
                     akv, akt, hbls, hbbl, fast):
     """Post-corrector tail: tracer BCs -> halo refresh -> final EOS ->
     state assembly (reference: main.F:469-490).  The t3dmix tendency is
-    already in t_new (fused into the corrector stage)."""
+    already in t_new."""
     t_new = bc.t3dbc(t_new, state.t, u_half, v_half, grid, cfg,
                      forcing.bry, pred_stage=False)
     t_new = halo(t_new)  # (reference: step3d_t_ISO.F:1167-1177)

@@ -11,8 +11,10 @@
     tests/test_filament_regression.py;
 (d) a fresh interpreter runs a Filament step and a production-physics
     step of the port with no module of jax, flax or roms_tpu imported;
-(e) roms_tpu_torch.profile_step reads every layer of a tiny step and
-    puts the layers back; chip_smoke.py fails with no CUDA device;
+(e) roms_tpu_torch.profile_step reads every layer of a tiny step (the
+    batched tracer branch where the tracer kernel does not cover the
+    configuration, and `forcing_fn` where a case has one) and puts the
+    layers back; chip_smoke.py fails with no CUDA device;
 (f) a case setup builds on the card by default, and raises on a host
     without one rather than falling back to the CPU.
 """
@@ -22,6 +24,7 @@ import inspect
 import os
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +38,9 @@ from roms_tpu.stepper import step as jstep
 from roms_tpu_torch import bridge, profile_step
 from roms_tpu_torch.cases import bench_production as tbp
 from roms_tpu_torch.cases import filament as tfilament
+from roms_tpu_torch.cases import rivers_ana as trivers_ana
 from roms_tpu_torch.driver import run
+from roms_tpu_torch.experiment import Experiment
 from roms_tpu_torch.stepper import step as tstep
 
 from torch_helpers import np_tree, port_cfg
@@ -151,6 +156,52 @@ def test_profile_step_reads_the_production_case():
                                say=lambda *a: None, case=tbp)
     assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS}
     assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
+
+
+def test_profile_step_reads_the_batched_tracer_branch():
+    """A river case leaves the tracer kernel out (`cuda_tracer.usable`):
+    the batched branch's functions are read as layers instead, and put
+    back."""
+    cfg = trivers_ana.config().replace(nx=20, ny=20, nz=4, ndtfast=6)
+    before = [getattr(m, n) for m, n in profile_step.BATCHED]
+    out = profile_step.profile(cfg, torch.device("cpu"), dtype=F64,
+                               say=lambda *a: None, case=trivers_ana)
+    assert [getattr(m, n) for m, n in profile_step.BATCHED] == before
+    # Rivers_ana has no lateral viscosity or diffusion
+    names = {n for _, n in profile_step.LAYERS + profile_step.BATCHED}
+    assert set(out["layers_ms"]) == names - {"tracer_stage", "visc3d",
+                                             "t3dmix"}
+    assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
+
+
+def test_profile_step_reads_forcing_fn_of_a_built_case():
+    """A case with `build` runs with its experiment's forcing_fn, read as
+    a layer in the bracketed steps, and its files are closed after."""
+    cfg = tfilament.config().replace(nx=16, ny=12, nz=4, ndtfast=6)
+    calls, closed = [], []
+
+    def forcing_fn(t, base):
+        calls.append(t)
+        return base
+
+    def build(workdir, ntimes, dtype, device):
+        assert workdir == "inputs"
+        grid, st, frc = tfilament.setup(cfg, dtype=dtype, device=device)
+        return Experiment(cfg=cfg, grid=grid, state=st, forcing0=frc,
+                          forcing_fn=forcing_fn, rc=None,
+                          fileset=types.SimpleNamespace(
+                              close=lambda: closed.append(True)))
+    case = types.SimpleNamespace(__name__="roms_tpu_torch.cases.built",
+                                 build=build)
+    out = profile_step.profile(None, torch.device("cpu"), dtype=F64,
+                               say=lambda *a: None, case=case,
+                               workdir="inputs")
+    nsteps = (profile_step.WARM + profile_step.WALL_WINDOWS
+              * profile_step.WALL_STEPS + profile_step.PROF_STEPS
+              + profile_step.LAYER_STEPS)
+    assert len(calls) == nsteps and closed == [True]
+    assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS} - {
+        "vmix_update", "visc3d"} | {"forcing_fn"}
 
 
 def test_chip_smoke_fails_without_cuda():
