@@ -66,9 +66,28 @@ is nonzero:
      and the host-to-device copies); each kernel the case's gates select
      timed against its plain version on the run's final state, as in
      phases 5-6 (with the sponge's diff2 in the fused t3dmix).
+ 11. biogeochemistry and mCDR in float64: bgc_real (MARBL, nt=34; BEC,
+     nt=28), cdr_parameterized, cdr_dp and cdr_3d (199x99x50, bulk
+     forcing, tides in bgc_real, rivers), 10 steps each through
+     `Experiment.run` against tests/data/{case}_oracle.txt and
+     {case}_mass_oracle.txt at the tolerances of phase 9; then cdr_3d
+     without rivers, so that the tracer kernel runs: 3 steps with the
+     kernel against the same steps with its plain version on the card
+     (the tolerances of phase 4, hbbl held with we, akv and akt), and the
+     ALK and DIC the release adds against a run without it.
+ 12. bgc_real (MARBL) and cdr_3d in float32 at 199x99x50: 2 warm-up + 8
+     timed steps, as phase 10 (ms/step, peak memory, `forcing_fn`'s host
+     ms, each kernel against its plain version); the tracer masses after
+     the 10 steps against the float64 mass oracle, the surface pH range
+     of the float32 state and its distance from a float64 solve of the
+     same surface, and in bgc_real the float32 tidal phase error at the
+     start time; then `profile_step` on each: kernels a step, busy share,
+     the BGC block's kernels and share, and the batched tracer branch's
+     ms at nt=34.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
-before it and reads them just after, and holds them to what the
+before it and reads them just after (phase 12's profile excepted: it
+reads the device's kernels), and holds them to what the
 configuration's gates select: the tracer kernel twice a step where
 `cuda_tracer.usable` admits the configuration (not for river sources),
 the solve four times, KPP twice under lmd_kpp.  The line before the last
@@ -100,6 +119,13 @@ TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 STATE = ("zeta", "ubar", "vbar", "u", "v", "t", "hz", "rho")
+# how close the ALK and DIC content that cdr_3d's release adds in phase 11
+# must come to flx*dt*steps: ALK takes no part in the BGC engine's
+# interior rates, so only round-off and the open boundaries take from it
+# (-9.7e-11 over the 3 steps on the H100); DIC also feels the change in
+# the air-sea CO2 flux that the added ALK and DIC bring at the surface
+# (-1.0e-5)
+CDR_GAIN_RTOL = {"ALK": 1e-8, "DIC": 1e-4}
 
 
 def say(*a):
@@ -412,8 +438,22 @@ def phase_production_f64(device):
             counts = read_counts()
             check_counts(counts, nsteps, cfg, "production f64 run")
         out[str(where)] = bridge.to_numpy(st)
-    ref, got = out["cpu"], out[str(device)]
-    loose = bench_production.CONDITIONED_TOL
+    main, text = compare_states(out[str(device)], out["cpu"],
+                                "production f64: card vs CPU")
+    say(f"[4 production f64] 48x32x16 nt=4, {nsteps} steps, card vs CPU: "
+        f"max err / max(1, max|ref|) {main:.3e} over the state, {text}"
+        f"; launches tracer {counts[0]}, solve {counts[1]}, "
+        f"kpp {counts[2]}")
+
+
+def compare_states(got, ref, what, loose=None):
+    """Every state field of `got` (dicts of numpy arrays) against `ref` at
+    atol bench_production.STEP_TOL * max(1, max|ref|), CONDITIONED_TOL (or
+    `loose`) for the ill-conditioned we, akv and akt (the bounds that
+    tests/test_torch_production.py holds the port to); returns (the worst
+    error over the other fields, a text of the conditioned ones)."""
+    from roms_tpu_torch.cases import bench_production
+    loose = loose or bench_production.CONDITIONED_TOL
     worst = {}
     for name, a in ref.items():
         if a is None or isinstance(a, dict):
@@ -423,15 +463,10 @@ def phase_production_f64(device):
         worst[name] = err
         if not np.isfinite(got[name]).all() or \
                 err > loose.get(name, bench_production.STEP_TOL):
-            raise AssertionError(f"production f64: state.{name} on the "
-                                 f"card differs from the CPU by {err:.3e} "
-                                 f"* max(1, max|ref|)")
+            raise AssertionError(f"{what}: state.{name} differs by "
+                                 f"{err:.3e} * max(1, max|ref|)")
     main = max(v for k, v in worst.items() if k not in loose)
-    say(f"[4 production f64] 48x32x16 nt=4, {nsteps} steps, card vs CPU: "
-        f"max err / max(1, max|ref|) {main:.3e} over the state, "
-        + ", ".join(f"{k} {worst[k]:.3e}" for k in loose)
-        + f"; launches tracer {counts[0]}, solve {counts[1]}, "
-        f"kpp {counts[2]}")
+    return main, ", ".join(f"{k} {worst[k]:.3e}" for k in loose)
 
 
 # ------------------------------------------------------------------ timing
@@ -666,8 +701,8 @@ def full_width(start, warm, nsteps, what, timings):
     """Drive the Experiment that `start()` returns through Experiment.run:
     warm-up steps, then timed steps between two synchronizes; checks
     finiteness and the launch counts; prints the host time a step spent
-    in `forcing_fn` where the run has one; with `timings`, returns the
-    kernels' JSON rows."""
+    in `forcing_fn` where the run has one; returns (the kernels' JSON rows
+    with `timings`, else None; the final state; the experiment)."""
     gc.collect()        # an earlier phase's tensors held by reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -683,15 +718,17 @@ def full_width(start, warm, nsteps, what, timings):
             clock[iic] = time.perf_counter()
 
     if exp.forcing_fn is not None:
+        from roms_tpu_torch.driver import _call_forcing_fn
         fn = exp.forcing_fn
 
-        def forcing_fn(t, base):
+        def forcing_fn(t, base, state):
             # the device is drained first, so the host clock holds the
-            # interpolation and the host-to-device copies alone (each copy
-            # from pageable memory waits for the stream anyway)
+            # interpolation, the bulk fluxes and the host-to-device copies
+            # alone (each copy from pageable memory waits for the stream
+            # anyway)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            last[0] = fn(t, base)
+            last[0] = _call_forcing_fn(fn, t, base, state)
             spent.append(time.perf_counter() - t0)
             return last[0]
         exp.forcing_fn = forcing_fn
@@ -722,7 +759,7 @@ def full_width(start, warm, nsteps, what, timings):
     # the kernels are timed on the forcing of the last step
     rows = kernel_timings(exp.grid, st, last[0], cfg, what, counts) \
         if timings else None
-    return rows
+    return rows, st, exp
 
 
 # ------------------------------------------------------------ phases 5-7
@@ -736,7 +773,7 @@ def phase_production_full_width(device):
     from roms_tpu_torch.cases import bench_production
     cfg = bench_production.config(nx=384, ny=192, nz=60, nt=34)  # bench.py:66
     return full_width(analytic(bench_production, cfg, device), 2, 10,
-                      "6 production", True)
+                      "6 production", True)[0]
 
 
 def phase_reference_size(device):
@@ -846,43 +883,87 @@ def real_case(name):
     return importlib.import_module(f"roms_tpu_torch.cases.{name}")
 
 
+def real_f64(device, workdir, name, module, nsteps, tag, **kw):
+    """One real-data case in float64 on the card, `nsteps` steps through
+    Experiment.run against tests/data/{name}_oracle.txt and
+    {name}_mass_oracle.txt (check_against_oracle's tolerances); returns
+    the experiment."""
+    exp = real_case(module).build(workdir, ntimes=nsteps,
+                                  dtype=torch.float64, device=device, **kw)
+    try:
+        reset_counts()
+        st, rows = exp.run(nsteps=nsteps)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        exp.fileset.close()
+    check_counts(counts, nsteps, exp.cfg, f"{tag} {name}")
+    oracle = np.loadtxt(os.path.join(DATA, f"{name}_oracle.txt"))
+    if rows.shape != oracle.shape:
+        raise AssertionError(f"{name}: {rows.shape} rows vs {oracle.shape}")
+    worst = worst_rel(rows, oracle)
+    for col, rtol in zip((1, 2, 3, 4), REAL_RTOL):
+        if not (np.allclose(rows[:, col], oracle[:, col], rtol=rtol,
+                            atol=1e-300)
+                and np.isclose(rows[:, col].sum(), oracle[:, col].sum(),
+                               rtol=rtol)):
+            raise AssertionError(f"{name}: column {col} max rel dev "
+                                 f"{worst[col]:.3e} > {rtol}")
+    masses = tracer_masses(st, exp.grid)
+    m_rel, m_text = check_masses(name, masses, exp.cfg)
+    cfg = exp.cfg
+    say(f"[{tag}] {name} {cfg.nx}x{cfg.ny}x{cfg.nz} nt={cfg.nt} f64, "
+        f"{nsteps} steps vs tests/data/{name}_oracle.txt: max rel dev KE "
+        f"{worst[1]:.3e}, barotropic KE {worst[2]:.3e}, CFL {worst[3]:.3e}, "
+        f"vertical CFL {worst[4]:.3e} (rtol {REAL_RTOL}), tracer masses "
+        f"{m_rel:.3e} (1e-9){m_text}; launches tracer {counts[0]}, solve "
+        f"{counts[1]}, kpp {counts[2]}")
+    return exp
+
+
+# the tracers whose mass oracle the mCDR cases froze before the full
+# carbonate solver took over the air-sea CO2 flux: the JAX package's own
+# run misses them (by 1.9e-7 in cdr_parameterized); tests/data/
+# {case}_mass_jax.txt holds what it computes now (tests/jax_cdr_masses.py)
+STALE_MASS = ("DIC", "DIC_ALT_CO2")
+
+
+def check_masses(name, masses, cfg):
+    """The final tracer masses against {name}_mass_oracle.txt at rtol
+    1e-9; where {name}_mass_jax.txt exists, every tracer against it and
+    the STALE_MASS tracers against it alone.  Returns (the largest
+    deviation held, a note on the JAX package's masses)."""
+    m_oracle = np.atleast_1d(np.loadtxt(
+        os.path.join(DATA, f"{name}_mass_oracle.txt")))
+    held = np.ones(masses.shape, bool)
+    note = ""
+    jax_path = os.path.join(DATA, f"{name}_mass_jax.txt")
+    if os.path.exists(jax_path):
+        from roms_tpu_torch.bgc.api import get_model
+        names = [n.upper() for n in ("temp", "salt")
+                 + tuple(get_model(cfg.bgc_model).tracer_names)]
+        held[[names.index(n) for n in STALE_MASS]] = False
+        m_jax = np.loadtxt(jax_path)
+        j_dev = np.abs(masses - m_jax) / np.abs(m_jax)
+        if not j_dev.max() <= 1e-9:
+            raise AssertionError(f"{name}: tracer masses max rel dev "
+                                 f"{j_dev.max():.3e} > 1e-9 from the JAX "
+                                 f"package's (tracer {int(j_dev.argmax())})")
+        stale = np.abs(masses - m_oracle)[~held] / np.abs(m_oracle[~held])
+        note = (f", against the JAX package's own {j_dev.max():.3e} (1e-9; "
+                f"{'/'.join(STALE_MASS)} {stale.max():.3e} from the stale "
+                f"oracle)")
+    m_dev = np.abs(masses - m_oracle) / np.abs(m_oracle)
+    if not m_dev[held].max() <= 1e-9:
+        raise AssertionError(f"{name}: tracer masses max rel dev "
+                             f"{m_dev[held].max():.3e} > 1e-9 (by tracer "
+                             + " ".join(f"{x:.1e}" for x in m_dev) + ")")
+    return float(m_dev[held].max()), note
+
+
 def phase_real_f64(device, workdir):
     for name in REAL_CASES:
-        exp = real_case(name).build(workdir, ntimes=20, dtype=torch.float64,
-                                    device=device)
-        try:
-            reset_counts()
-            st, rows = exp.run(nsteps=20)
-            torch.cuda.synchronize()
-            counts = read_counts()
-        finally:
-            exp.fileset.close()
-        check_counts(counts, 20, exp.cfg, f"9 {name}")
-        oracle = np.loadtxt(os.path.join(DATA, f"{name}_oracle.txt"))
-        if rows.shape != oracle.shape:
-            raise AssertionError(f"{name}: {rows.shape} rows vs "
-                                 f"{oracle.shape}")
-        worst = worst_rel(rows, oracle)
-        for col, rtol in zip((1, 2, 3, 4), REAL_RTOL):
-            if not (np.allclose(rows[:, col], oracle[:, col], rtol=rtol,
-                                atol=1e-300)
-                    and np.isclose(rows[:, col].sum(), oracle[:, col].sum(),
-                                   rtol=rtol)):
-                raise AssertionError(f"{name}: column {col} max rel dev "
-                                     f"{worst[col]:.3e} > {rtol}")
-        masses = tracer_masses(st, exp.grid)
-        m_oracle = np.atleast_1d(np.loadtxt(
-            os.path.join(DATA, f"{name}_mass_oracle.txt")))
-        m_rel = float((np.abs(masses - m_oracle) / np.abs(m_oracle)).max())
-        if not np.allclose(masses, m_oracle, rtol=1e-9, atol=0):
-            raise AssertionError(f"{name}: tracer masses max rel dev "
-                                 f"{m_rel:.3e} > 1e-9")
-        say(f"[9 real data] {name} 199x99x50 f64, 20 steps vs "
-            f"tests/data/{name}_oracle.txt: max rel dev KE {worst[1]:.3e}, "
-            f"barotropic KE {worst[2]:.3e}, CFL {worst[3]:.3e}, vertical "
-            f"CFL {worst[4]:.3e} (rtol {REAL_RTOL}), tracer masses "
-            f"{m_rel:.3e} (1e-9); launches tracer {counts[0]}, solve "
-            f"{counts[1]}, kpp {counts[2]}")
+        real_f64(device, workdir, name, name, 20, "9 real data")
 
 
 def phase_real_f32(device, workdir, warm=2, nsteps=10):
@@ -891,6 +972,189 @@ def phase_real_f32(device, workdir, warm=2, nsteps=10):
             return real_case(name).build(workdir, ntimes=warm + nsteps,
                                          dtype=torch.float32, device=device)
         full_width(start, warm, nsteps, f"10 {name}", True)
+
+
+# ------------------------------------------------------------ phases 11-12
+# (oracle name, case module, build keywords); the oracles run 10 steps
+BGC_CASES = (("bgc_real", "bgc_real", {"variant": "marbl"}),
+             ("bgc_real_bec", "bgc_real", {"variant": "bec"}),
+             ("cdr_parameterized", "cdr_parameterized", {}),
+             ("cdr_dp", "cdr_dp", {}),
+             ("cdr_3d", "cdr_3d", {}))
+BGC_F32 = ("bgc_real", "cdr_3d")
+BGC_STEPS = 10
+
+
+def phase_bgc_f64(device, workdir):
+    """The five oracle cases, then cdr_3d without rivers on the tracer
+    kernel's path; returns the f64 bgc_real experiment (its tides and
+    start time are phase 12's reference)."""
+    out = {}
+    for name, module, kw in BGC_CASES:
+        out[name] = real_f64(device, case_dir(workdir, name), name, module,
+                             BGC_STEPS, "11 bgc f64", **kw)
+    phase_cdr_kernel_path(device, case_dir(workdir, "cdr_3d"))
+    return out["bgc_real"]
+
+
+def case_dir(workdir, name):
+    """A directory of its own for each BGC case's inputs: the generator
+    keeps one set of files a directory, and the BEC variant's tracer
+    names are not MARBL's."""
+    path = os.path.join(workdir, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def phase_cdr_kernel_path(device, workdir, nsteps=3):
+    """cdr_3d without rivers, so that `cuda_tracer.usable` admits it: the
+    release is folded into the corrector's base content.  The run with
+    the kernel against the same run with its plain version, and the ALK
+    and DIC it adds against a run without the release."""
+    from roms_tpu_torch import bridge
+    from roms_tpu_torch.cases import bench_production, cdr_real
+    from roms_tpu_torch.ops import cuda_tracer
+    cfg = cdr_real.base_config().replace(river_source=False)
+    if not cuda_tracer.usable(cfg):
+        raise AssertionError("cdr_3d without rivers: the tracer kernel's "
+                             "gate refuses it")
+
+    def go(release, plain):
+        exp = cdr_real.build(workdir, "3d", ntimes=nsteps,
+                             dtype=torch.float64, device=device,
+                             base_cfg=cfg)
+        fn = exp.forcing_fn
+        if not release:
+            exp.forcing_fn = lambda t, b, st: fn(t, b, st).replace(cdr=None)
+        kernel = cuda_tracer.tracer_stage
+        if plain:
+            cuda_tracer.tracer_stage = cuda_tracer.tracer_stage_plain
+        try:
+            reset_counts()
+            st, _ = exp.run(nsteps=nsteps, collect_diag=False)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            cuda_tracer.tracer_stage = kernel
+            exp.fileset.close()
+        frc = fn(float(exp.state.time), exp.forcing0, exp.state)
+        return st, counts, exp, frc
+
+    st, counts, exp, frc = go(True, False)
+    check_counts(counts, nsteps, cfg, "11 cdr_3d without rivers")
+    ref, _, _, _ = go(True, True)
+    dry, _, _, _ = go(False, False)
+    # the bottom boundary layer's depth, found by a search on the same
+    # ill-conditioned bulk Richardson number as akv and akt, is held with
+    # them: over these 3 steps it moved by 1.017e-10 * max(1, max|ref|)
+    # while every prognostic field held 5e-11
+    loose = dict(bench_production.CONDITIONED_TOL,
+                 hbbl=bench_production.CONDITIONED_TOL["akv"])
+    main, text = compare_states(bridge.to_numpy(st), bridge.to_numpy(ref),
+                                "cdr_3d without rivers: kernel vs plain",
+                                loose=loose)
+    h = cfg.halo
+    da = (1.0 / (exp.grid.pm * exp.grid.pn))[h:-h, h:-h]
+    gains = []
+    for nm, i in (("ALK", cdr_real.IALK), ("DIC", cdr_real.IDIC)):
+        moved = float((((st.t[i] - dry.t[i]) * st.hz)[:, h:-h, h:-h]
+                       * da).sum())
+        added = float(frc.cdr.flx_3d[i][:, h:-h, h:-h].sum()) \
+            * exp.cfg.dt * nsteps
+        rel = moved / added - 1.0
+        gains.append(f"{nm} {moved:.6e} vs {added:.6e} ({rel:+.3e})")
+        if not abs(rel) < CDR_GAIN_RTOL[nm]:
+            raise AssertionError(f"cdr_3d without rivers: the release adds "
+                                 f"{moved:.6e} of {nm}, {added:.6e} "
+                                 f"expected")
+    say(f"[11 cdr kernel path] cdr_3d without rivers f64, {nsteps} steps: "
+        f"kernel vs plain max err / max(1, max|ref|) {main:.3e}, {text}; "
+        f"content the release adds against a run without it: "
+        + "; ".join(gains) + f"; launches tracer {counts[0]}, solve "
+        f"{counts[1]}, kpp {counts[2]}")
+
+
+def phase_bgc_f32(device, workdir, ref64, warm=2):
+    from roms_tpu_torch import profile_step
+    for name in BGC_F32:
+        case = real_case(name)
+        inputs = case_dir(workdir, name)
+
+        def start(case=case, inputs=inputs):
+            return case.build(inputs, ntimes=BGC_STEPS, dtype=torch.float32,
+                              device=device)
+        tag = f"12 {name}"
+        _, st, exp = full_width(start, warm, BGC_STEPS - warm, tag, True)
+        masses = tracer_masses(st, exp.grid)
+        m_ref = os.path.join(DATA, f"{name}_mass_jax.txt")
+        if not os.path.exists(m_ref):
+            m_ref = os.path.join(DATA, f"{name}_mass_oracle.txt")
+        m_ref = np.atleast_1d(np.loadtxt(m_ref))
+        gap = np.abs(masses - m_ref) / np.abs(m_ref)
+        ph32, ph64 = surface_ph(st, exp.cfg, exp.grid)
+        say(f"[{tag}] f32 after {BGC_STEPS} steps: tracer masses vs the "
+            f"f64 reference (check_masses), max rel gap {gap.max():.3e} "
+            f"(tracer {int(gap.argmax())}), median {np.median(gap):.3e}; "
+            f"surface "
+            f"pH {float(ph32.min()):.6f} to {float(ph32.max()):.6f}, max "
+            f"|f32 - f64 solve of the same surface| "
+            f"{float((ph32.double() - ph64).abs().max()):.3e}")
+        if not (np.isfinite(masses).all()
+                and bool(torch.isfinite(ph32).all())):
+            raise AssertionError(f"{tag}: masses or pH not finite")
+        if exp.tides is not None:
+            say(f"[{tag}] " + tidal_phase_error(exp, ref64))
+        out = profile_step.profile(None, device, case=case, workdir=inputs,
+                                   say=lambda *a, t=tag: say(f"[{t}]", *a))
+        batched = sum(out["layers_ms"].get(n, 0.0)
+                      for _, n in profile_step.BATCHED)
+        say(f"[{tag}] profile: {out.get('kernels_per_step', 0.0):.0f} kernels "
+            f"a step, busy share {out.get('busy_share', float('nan')):.4f}; "
+            f"the BGC block {out.get('bgc_kernels', 0)} kernels "
+            f"({out.get('bgc_share', float('nan')):.4f} of the step's); "
+            f"batched tracer branch {batched:.3f} ms of the "
+            f"{out['layer_step_ms']:.3f}-ms bracketed step "
+            f"({batched / out['layer_step_ms']:.4f}), the BGC block "
+            f"{out['layers_ms'].get('bgc_update', 0.0):.3f} ms, forcing_fn "
+            f"{out['layers_ms'].get('forcing_fn', 0.0):.3f} ms")
+
+
+def surface_ph(st, cfg, grid):
+    """Surface pH at the interior ocean points from the run's tracers, in
+    the run's dtype and in float64, solved as the BGC engine's surface flux
+    solves it (closed-form seed, 25 iterations, PO4 and SiO3 included)."""
+    from roms_tpu_torch.bgc import bec, carbonate
+    from roms_tpu_torch.bgc.api import get_model
+    names = [n.upper() for n in get_model(cfg.bgc_model).tracer_names]
+    i0 = cfg.nt - cfg.n_bgc
+    h = cfg.halo
+    ocean = grid.rmask[h:-h, h:-h] > 0
+
+    def ph(dtype):
+        def s(i):
+            return st.t[i, -1, h:-h, h:-h].to(dtype)[ocean]
+        dic, alk = s(i0 + names.index("DIC")), s(i0 + names.index("ALK"))
+        temp, salt = s(cfg.itemp), s(cfg.isalt)
+        _, ph0, _ = bec._co2_equilibrium(dic, alk, temp, salt)
+        return carbonate.co2_system(
+            dic, alk, temp, salt, s(i0 + names.index("PO4")),
+            s(i0 + names.index("SIO3")), h_init=10.0 ** (-ph0)).ph
+    return ph(st.t.dtype), ph(torch.float64)
+
+
+def tidal_phase_error(exp, ref64):
+    """The phase ftide*(t + dt/2) that set_tides evaluates in the model's
+    dtype at the start time, against the float64 run's."""
+    cfg = exp.cfg
+    om = exp.tides.ftide * (exp.state.time + 0.5 * cfg.dt)
+    om64 = ref64.tides.ftide * (ref64.state.time + 0.5 * cfg.dt)
+    err = (om.double() - om64).abs()
+    cos_err = (torch.cos(om.double()) - torch.cos(om64)).abs()
+    return (f"tidal phase at the start time t = {float(ref64.state.time):.1f}"
+            f" s ({float(exp.state.time):.1f} s in {str(om.dtype)[6:]}): "
+            f"max |error| {float(err.max()):.3e} rad over "
+            f"{om.numel()} constituents, max |cos error| "
+            f"{float(cos_err.max()):.3e}")
 
 
 def main():
@@ -911,6 +1175,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="uswc_", dir=build) as workdir:
         phase_real_f64(device, workdir)
         phase_real_f32(device, workdir)
+        ref64 = phase_bgc_f64(device, workdir)
+        phase_bgc_f32(device, workdir, ref64)
     say(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

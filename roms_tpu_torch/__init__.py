@@ -10,7 +10,9 @@ JAX package configuration as the port's `ModelConfig`.
 Scope: the baroclinic step through `driver.run` for the Filament case
 (doubly periodic, linear EOS) and the production-physics case
 (`cases/bench_production.py`: nonlinear EOS, KPP, 34 tracers, land mask,
-curvilinear metrics, lateral viscosity and 4-side open boundaries), with
+curvilinear metrics, lateral viscosity and 4-side open boundaries), the
+point sources and the file-driven real-data cases, bulk-COARE forcing,
+tides, the BGC engines (`bgc/`) and the mCDR releases (`cdr.py`), with
 the three TPU kernels of that step written by hand in CUDA for Hopper
 (`ops/cuda_tracer.py`, `ops/cuda_solve.py`, `ops/cuda_kpp.py`, sources
 under `csrc/`).  Every feature the step does not carry raises

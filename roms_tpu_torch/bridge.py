@@ -2,10 +2,10 @@
 packages through plain Python and numpy.
 
 The JAX package's pytrees go in as dicts of numpy arrays, one entry per
-dataclass field (None for an absent optional field; `forcing.bry` a
-nested dict of the same kind), and come back out of the port the same
-way.  A configuration goes in as `dataclasses.asdict` of the JAX
-package's `ModelConfig`.  This is how the tests feed both packages
+dataclass field (None for an absent optional field; `forcing.bry` and
+`forcing.cdr` nested dicts of the same kind, `forcing.bgc` a dict of
+fields), and come back out of the port the same way.  A configuration
+goes in as `dataclasses.asdict` of the JAX package's `ModelConfig`.  This is how the tests feed both packages
 identical inputs; nothing here imports the JAX package.
 """
 
@@ -17,9 +17,11 @@ from enum import Enum
 import numpy as np
 import torch
 
+from roms_tpu_torch.cdr import CdrForcing
 from roms_tpu_torch.config import AdvScheme, ModelConfig
 from roms_tpu_torch.grid import Grid
 from roms_tpu_torch.state import BoundaryData, Forcing, OceanState
+from roms_tpu_torch.tides import TidalForcing
 
 
 def config_from_dict(d: dict) -> ModelConfig:
@@ -59,27 +61,47 @@ def state_from_numpy(d: dict, *, dtype: torch.dtype,
     return _from_numpy(OceanState, d, dtype, device)
 
 
+def cdr_from_numpy(d: dict, *, dtype: torch.dtype,
+                   device: torch.device) -> CdrForcing:
+    """Release data; the point indices `jloc`, `iloc`, `icdr` become
+    int64."""
+    cdr = _from_numpy(CdrForcing, d, dtype, device)
+    return cdr.replace(**{k: getattr(cdr, k).long()
+                          for k in ("jloc", "iloc", "icdr")
+                          if getattr(cdr, k) is not None})
+
+
+def tides_from_numpy(d: dict, *, dtype: torch.dtype,
+                     device: torch.device) -> TidalForcing:
+    return _from_numpy(TidalForcing, d, dtype, device)
+
+
 def forcing_from_numpy(d: dict, *, dtype: torch.dtype,
                        device: torch.device) -> Forcing:
-    for name in ("cdr", "bgc"):
-        if d.get(name) is not None:
-            raise NotImplementedError(f"forcing.{name} is not ported yet "
-                                      "(ROADMAP Queue 1)")
-    frc = _from_numpy(Forcing, {k: v for k, v in d.items() if k != "bry"},
-                      dtype, device)
+    nested = ("bry", "cdr", "bgc")
+    frc = _from_numpy(Forcing, {k: v for k, v in d.items()
+                                if k not in nested}, dtype, device)
     if d.get("bry") is not None:
         frc = frc.replace(bry=_from_numpy(BoundaryData, d["bry"], dtype,
                                           device))
+    if d.get("cdr") is not None:
+        frc = frc.replace(cdr=cdr_from_numpy(d["cdr"], dtype=dtype,
+                                             device=device))
+    if d.get("bgc") is not None:
+        frc = frc.replace(bgc={k: _tensor(v, dtype, device)
+                               for k, v in d["bgc"].items()})
     return frc
 
 
 def to_numpy(x):
-    """Tensor -> ndarray; dataclass of tensors -> dict of ndarrays (None
-    stays None)."""
+    """Tensor -> ndarray; dataclass or dict of tensors -> dict of ndarrays
+    (None stays None)."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
     if dataclasses.is_dataclass(x):
         return {f.name: to_numpy(getattr(x, f.name))
                 for f in dataclasses.fields(x)}

@@ -11,15 +11,13 @@ find_new_record multi-file search):
     each variable binds to the first file that contains it, with that
     file's own time axis and cycling, like the reference's per-variable
     record search;
-  * build the host-side time-interpolating ForcingSet (surface fluxes,
-    open-boundary data incl. per-tracer variables, rivers, pipes);
-  * return a `forcing_fn(time, base)` the driver calls every step (the
-    set_forces analog).
-
-Bulk-COARE forcing, tides, BGC forcing series and mCDR releases are not
-ported yet: `assemble` raises NotImplementedError where a forcing file
-carries them or `cdr_mode` asks for releases, before any step (ROADMAP
-Queue 1 item 10).
+  * build the host-side time-interpolating ForcingSet (surface fluxes
+    OR bulk-COARE atmospheric state, open-boundary data incl. per-tracer
+    variables, rivers, pipes, tides, BGC deposition, mCDR releases);
+  * return a `forcing_fn(time, base, state)` the driver calls every step
+    (the set_forces analog).  Bulk forcing reads the SST and the surface
+    currents from the state on the device; only the atmospheric records
+    come from the host, one host-to-device copy a field a step.
 """
 
 from __future__ import annotations
@@ -31,6 +29,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from roms_tpu_torch import cdr as cdrmod
 from roms_tpu_torch.audit import check_config
 from roms_tpu_torch.cases import resolve_device
 from roms_tpu_torch.config import ModelConfig
@@ -39,14 +38,17 @@ from roms_tpu_torch.forcing import (DAY, DerivedSeries, ForcingSet, Series,
                                     series_from_dataset)
 from roms_tpu_torch.io.input import read_grid, read_init
 from roms_tpu_torch.io.netcdf import NCDataset, open_dataset
+from roms_tpu_torch.ops.bulk import bulk_flux
 from roms_tpu_torch.ops.rivers import build_river_faces
 from roms_tpu_torch.runconfig import RunConfig, read_inp
 from roms_tpu_torch.sponge import set_nudgcof
 from roms_tpu_torch.state import Forcing, zero_forcing
+from roms_tpu_torch.tides import TidalForcing, set_tides
 
 CP = 3985.0           # (reference: scalars.F:128)
 CMDAY2MS = 0.01 / DAY  # cm/day -> m/s (reference: scalars.F cmday2ms)
 
+_BULK_FORCING = ("uwnd", "vwnd", "Tair", "qair", "rain", "lwrad", "swrad")
 _BGC_FORCING = ("dust", "iron", "pco2_air", "pco2_air_alt", "nox", "nhy",
                 "swrad_LFreq")
 
@@ -93,8 +95,9 @@ class Experiment:
     grid: object
     state: object
     forcing0: Forcing          # static parts (rivers/pipes structure, ...)
-    forcing_fn: object         # f(time, base) -> Forcing
+    forcing_fn: object         # f(time, base, state) -> Forcing
     rc: RunConfig
+    tides: Optional[TidalForcing] = None
     fileset: Optional[FileSet] = None
 
     def run(self, **kw):
@@ -116,16 +119,13 @@ def _prepend_zero(a: np.ndarray) -> np.ndarray:
     return np.concatenate([np.zeros((1,) + a.shape[1:], a.dtype), a], axis=0)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                              "item 10)")
-
-
 def assemble(infile: str, base_cfg: ModelConfig,
              tracer_names: Sequence[str] = ("temp", "salt"),
              nz: Optional[int] = None, dtype: torch.dtype = torch.float64,
              device: torch.device | str = "cuda",
-             cdr_mode: Optional[str] = None) -> Experiment:
+             cdr_mode: Optional[str] = None, cdr_file: Optional[str] = None,
+             bry_tides: bool = False, pot_tides: bool = True,
+             ntides: int = 10) -> Experiment:
     """Build an Experiment from a reference-format runtime input file, on
     the card unless `device` says otherwise.
 
@@ -133,7 +133,11 @@ def assemble(infile: str, base_cfg: ModelConfig,
     cppdefs.opt (OBC_*, LMD_KPP, MASKING, ...); grid dims are inferred from
     the grid file; roms.in keywords overlay the rest (reference split:
     param.opt/cppdefs.opt at compile time, roms.in at run time).
-    cdr_mode: the JAX package's mCDR switch; any value but None raises."""
+    cdr_mode: None | 'parameterized' | 'dp' | '3d' (reference: cdr_frc.opt
+    forcing_* switches; cdr_file: cdr_frc.opt cdr_file — these live in
+    the .opt file, not roms.in).  bry_tides/pot_tides: the boundary and
+    potential tides of the first `ntides` constituents of the file that
+    carries `omega` (reference: tides.F:285-342)."""
     device = resolve_device(device)
     rc = read_inp(infile)
     base_dir = os.path.dirname(os.path.abspath(infile))
@@ -156,8 +160,6 @@ def assemble(infile: str, base_cfg: ModelConfig,
             f"{infile}: MARBL_biogeochemistry block present but the "
             f"compile-time config has bgc_model='none' (reference: "
             f"check_setup errors on MARBL input without the MARBL switch)")
-    if cdr_mode is not None:
-        _not_ported(f"mCDR forcing (cdr_mode={cdr_mode!r})")
     check_config(cfg, strict=True)
 
     grid = read_grid(grid_path, cfg, dtype=dtype, device=device)
@@ -177,6 +179,9 @@ def assemble(infile: str, base_cfg: ModelConfig,
     point: Dict[str, object] = {}
     forcing0 = zero_forcing(cfg, dtype, device)
 
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
     # surface flux mode (reference: flux_frc.F:75-156 unit conversions)
     if fs.has("sustr"):
         r0i = 1.0 / cfg.rho0
@@ -190,14 +195,9 @@ def assemble(infile: str, base_cfg: ModelConfig,
             # freshwater volume flux, not a salt flux (flux_frc.F:100-103)
             surface["swflx"] = fs.series("swflux", scale=-CMDAY2MS)
 
-    # the forcing the JAX package reads and the port does not carry yet
-    if fs.has("uwnd"):
-        _not_ported("bulk-COARE surface forcing (uwnd, ...)")
-    if fs.has("omega"):
-        _not_ported("tidal forcing (omega, ...)")
-    for nm in _BGC_FORCING:
-        if fs.has(nm):
-            _not_ported(f"BGC surface forcing ({nm})")
+    # bulk-COARE mode (reference: bulk_frc.opt variable table)
+    bulk_series = ({nm: fs.series(nm) for nm in _BULK_FORCING if fs.has(nm)}
+                   if fs.has("uwnd") else {})
 
     # climatology file: boundary tracer rows for tracers absent from the
     # bry files (reference: read_inp_mod.F:1025-1036, t3dbc_im.F
@@ -234,9 +234,6 @@ def assemble(infile: str, base_cfg: ModelConfig,
                 f"tracers {tracer_names} and no climatology file supplies "
                 f"the rest; the reference requires all (boundary.F "
                 f"per-tracer set_frc_data / clm_file alternative)")
-
-    def dev(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
 
     # rivers (reference: river_frc.F:46-49; faces decoded from the grid
     # file's river_flux field, :150-280)
@@ -275,10 +272,54 @@ def assemble(infile: str, base_cfg: ModelConfig,
             lambda a: _prepend_zero(np.atleast_2d(a).T),
             fs.series("pipe_tracer"))
 
+    # tides (reference: tides.F:285-342)
+    tidal = None
+    if (bry_tides or pot_tides) and fs.has("omega"):
+        tidal = _load_tides(fs, cfg, ntides, bry_tides, pot_tides, dev)
+
+    # BGC atmospheric deposition / gas forcing (reference: bgc.opt,
+    # src/bgc_forces.F)
+    bgc_series = {nm: fs.series(nm) for nm in _BGC_FORCING if fs.has(nm)}
+
+    # mCDR releases (reference: cdr_frc.F three forcing modes)
+    cdr_static, cdr_flx_series = None, None
+    if cdr_mode is not None:
+        cdr_static, cdr_flx_series = _load_cdr(
+            resolve(cdr_file), cdr_mode, cfg, grid, state, tracer_names,
+            dtype, device)
+
     fset = ForcingSet(cfg, surface=surface, boundary=boundary, point=point,
                       dtype=dtype, device=device)
+
+    def field(s, t):
+        return dev(pad_field(np.atleast_2d(s.value(t)), cfg))
+
+    def forcing_fn(t, base, st=None):
+        frc = fset.at(t, base)
+        if bulk_series:
+            frc = _apply_bulk(frc, {nm: field(s, t)
+                                    for nm, s in bulk_series.items()},
+                              st, grid, cfg)
+        if tidal is not None:
+            bry_out, ptide = set_tides(tidal, dev(t), cfg, bry=frc.bry)
+            frc = frc.replace(bry=bry_out, ptide=ptide)
+        if bgc_series:
+            # replaces the dict, as the JAX package does: the bulk wspd
+            # does not reach the BGC engine when BGC series are present
+            frc = frc.replace(bgc={nm: field(s, t)
+                                   for nm, s in bgc_series.items()})
+        if cdr_static is not None:
+            cdr = cdr_static
+            if cdr_flx_series is not None:
+                flx = np.atleast_2d(cdr_flx_series.value(t)).T  # (ncdr, nt)
+                cdr = cdr.replace(flx=dev(flx))
+            frc = frc.replace(cdr=cdr)
+        return frc
+
+    # the hook reads the state only for the bulk fluxes
+    forcing_fn.needs_state = bool(bulk_series)
     return Experiment(cfg=cfg, grid=grid, state=state, forcing0=forcing0,
-                      forcing_fn=fset.at, rc=rc, fileset=fs)
+                      forcing_fn=forcing_fn, rc=rc, tides=tidal, fileset=fs)
 
 
 # On the joined-file (n+2) layout the boundary ring itself is column 0
@@ -311,3 +352,83 @@ def _clm_edge_series(ds, varname: str, edge: str) -> Series:
         return np.asarray(var[i], np.float64)[sl]
 
     return Series(times, read, cycle=cycle, name=f"clm:{varname}_{edge}")
+
+
+def _apply_bulk(frc: Forcing, v, st, grid, cfg) -> Forcing:
+    """COARE bulk fluxes from the interpolated atmospheric state `v`
+    (fields on the device) and the model's SST and surface currents, read
+    from the state on the device (reference: set_forces.F -> bulk_frc.F
+    set_bulk_frc)."""
+    fx = bulk_flux(v["uwnd"], v["vwnd"], v["Tair"], v["qair"], v["rain"],
+                   v["lwrad"], v["swrad"], st.t[cfg.itemp, -1],
+                   st.u[-1], st.v[-1], grid, cfg)
+    stflx = frc.stflx.clone()
+    stflx[cfg.itemp] = fx.stflx_temp
+    # the 10 m wind speed for gas exchange (reference: bec2_driver.F:186-188
+    # BULK_FRC branch uses wspd directly)
+    bgc = dict(frc.bgc) if frc.bgc else {}
+    bgc["wspd"] = torch.sqrt(v["uwnd"] ** 2 + v["vwnd"] ** 2)
+    return frc.replace(sustr=fx.sustr, svstr=fx.svstr, stflx=stflx,
+                       srflx=fx.srflx, swflx=fx.swflx, bgc=bgc)
+
+
+def _load_tides(fs: FileSet, cfg, ntides, bry_tides, pot_tides, dev):
+    """TidalForcing from the file that carries `omega`: the first `ntides`
+    constituents, amplitudes padded to the compute layout."""
+    ds = fs.dataset_of("omega")
+    om = np.asarray(ds["omega"][...], np.float64)[:ntides]
+
+    def fld(nm):
+        return dev(pad_field(np.asarray(ds[nm][...], np.float64)[:ntides],
+                             cfg))
+
+    kw = dict(ftide=dev(om))
+    if pot_tides and "pot_Re" in ds:
+        kw.update(ptide_re=fld("pot_Re"), ptide_im=fld("pot_Im"))
+    if bry_tides and "ssh_Re" in ds:
+        kw.update(ztide_re=fld("ssh_Re"), ztide_im=fld("ssh_Im"),
+                  utide_re=fld("u_Re"), utide_im=fld("u_Im"),
+                  vtide_re=fld("v_Re"), vtide_im=fld("v_Im"))
+    return TidalForcing(**kw)
+
+
+def _load_cdr(path: str, mode: str, cfg, grid, state, tracer_names, dtype,
+              device):
+    """CdrForcing from a cdr forcing file (reference: cdr_frc.F:111-114
+    3D, :189-243 dp, :264-292 parameterized).
+
+    Returns (static CdrForcing, per-step tracer-flux Series or None)."""
+    names = list(tracer_names)
+    ialk = names.index("ALK") if "ALK" in names else cfg.nt - 2
+    idic = names.index("DIC") if "DIC" in names else cfg.nt - 1
+    with open_dataset(path) as ds:
+        def vec(nm):
+            return np.atleast_1d(np.asarray(ds[nm][...], np.float64))
+
+        if mode == "parameterized":
+            lon, lat = vec("cdr_lon"), vec("cdr_lat")
+            static = cdrmod.parameterized_releases(
+                cfg, grid, state.z_r, state.hz, lon, lat, vec("cdr_dep"),
+                vec("cdr_hsc"), vec("cdr_vsc"), np.zeros((len(lon), cfg.nt)),
+                dtype=dtype, device=device)
+            return static, series_from_dataset(ds, "cdr_trcflx",
+                                               interp=False)
+        if mode == "dp":
+            hz_src = np.asarray(ds["cdr_layer_thickness"][0], np.float64).T
+            # file layout (n_src, nrows, ncdr) -> (ncdr, nrows, n_src)
+            prof = np.transpose(np.asarray(ds["cdr_trcflx_profile"][0],
+                                           np.float64), (2, 1, 0))
+            return cdrmod.profile_releases(
+                cfg, grid, state.hz, vec("cdr_lon"), vec("cdr_lat"), hz_src,
+                prof, tracer_indices=(ialk, idic), dtype=dtype,
+                device=device), None
+        if mode == "3d":
+            alk = pad_field(np.asarray(ds["cdr_trcflx_3d_ALK"][0],
+                                       np.float64), cfg)
+            dic = pad_field(np.asarray(ds["cdr_trcflx_3d_DIC"][0],
+                                       np.float64), cfg)
+            flx3 = np.zeros((cfg.nt,) + alk.shape)
+            flx3[ialk] = alk
+            flx3[idic] = dic
+            return cdrmod.cdr_3d(cfg, flx3, dtype=dtype, device=device), None
+    raise ValueError(f"unknown cdr mode {mode!r}")

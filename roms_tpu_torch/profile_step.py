@@ -5,11 +5,12 @@
 Runs Filament at 512x256x60 (the shape of bench.py:71-74 and
 chip_smoke.py's phase 5), the production-physics case at 384x192x60
 with nt=34 (bench.py:66, chip_smoke.py's phase 6), or one of the
-real-data cases flux_frc, rivers_real and pipes_real at 199x99x50, nt=2
-(chip_smoke.py's phase 10; assembled from the inputs `cases/uswc.py`
-writes into a temporary directory under the checkout's build/), in
-float32 through `driver.run`, without diagnostics, and reads the step
-in three windows of one run, after 2 warm-up steps:
+real-data cases at 199x99x50 — flux_frc, rivers_real and pipes_real
+with nt=2 (chip_smoke.py's phase 10), bgc_real (MARBL, nt=34) and
+cdr_3d (nt=34) (chip_smoke.py's phase 12); assembled from the inputs
+`cases/uswc.py` writes into a temporary directory under the checkout's
+build/ — in float32 through `driver.run`, without diagnostics, and reads
+the step in three windows of one run, after 2 warm-up steps:
 
   wall    three windows of 5 steps, host clock between two
           synchronizes: ms/step as chip_smoke.py reads it;
@@ -23,10 +24,14 @@ in three windows of one run, after 2 warm-up steps:
           synchronizes; where the tracer kernel does not cover the
           configuration (river sources), the batched tracer branch's
           functions (horizontal and vertical fluxes, the river flux fix,
-          the implicit solve, t3dmix) too, and a real-data case's
-          `forcing_fn`.  The brackets take away the
+          the implicit solve, t3dmix) too, a real-data case's
+          `forcing_fn`, and a BGC case's column physics
+          (`stepper.bgc_update`).  The brackets take away the
           overlap of host and device, so these steps are slower than the
-          wall windows; the shares are what the layers weigh.
+          wall windows; the shares are what the layers weigh;
+  bgc     in a BGC case, one call of `stepper.bgc_update` on the last
+          step's inputs under torch.profiler: the kernels it launches and
+          their time, beside the step's.
 
 Each reading is a line of its own on stdout.
 """
@@ -43,9 +48,10 @@ from collections import defaultdict
 import torch
 
 from roms_tpu_torch import stepper
-from roms_tpu_torch.cases import (bench_production, filament, flux_frc,
-                                  pipes_real, rivers_real)
-from roms_tpu_torch.driver import run
+from roms_tpu_torch.cases import (bench_production, bgc_real, cdr_3d,
+                                  filament, flux_frc, pipes_real,
+                                  rivers_real)
+from roms_tpu_torch.driver import _call_forcing_fn, run
 from roms_tpu_torch.ops import advection as adv
 from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
                                 cuda_tracer, eos, hmix, kinematics, prsgrd,
@@ -77,6 +83,8 @@ CASES = {
     "flux_frc": (flux_frc, None),
     "rivers_real": (rivers_real, None),
     "pipes_real": (pipes_real, None),
+    "bgc_real": (bgc_real, None),
+    "cdr_3d": (cdr_3d, None),
 }
 
 
@@ -137,6 +145,8 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
     else:
         grid, st, frc = case.setup(cfg, dtype=dtype, device=device)
     layers = LAYERS if cuda_tracer.usable(cfg) else LAYERS + BATCHED
+    if cfg.bgc_model != "none":
+        layers = layers + ((stepper, "bgc_update"),)
     marks, spent, out = {}, defaultdict(float), {}
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -155,16 +165,26 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
         if iic == w_end:
             prof.start()
 
-    def forcing_fn(t, base):
+    def forcing_fn(t, base, state):
         # a layer of its own in the bracketed steps
         if restore is None:
-            return frc_fn(t, base)
+            return _call_forcing_fn(frc_fn, t, base, state)
         _sync(device)
         t0 = time.perf_counter()
-        out = frc_fn(t, base)
+        out = _call_forcing_fn(frc_fn, t, base, state)
         _sync(device)
         spent["forcing_fn"] += time.perf_counter() - t0
         return out
+
+    bgc_args, bgc_fn = [], None
+    if cfg.bgc_model != "none":
+        # the inputs of the last step's BGC block, for the bgc reading
+        bgc_fn = stepper.bgc_update
+
+        def keep_args(*a, **k):
+            bgc_args[:] = [a, k]
+            return bgc_fn(*a, **k)
+        stepper.bgc_update = keep_args
 
     _sync(device)
     try:
@@ -173,6 +193,8 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
     finally:
         if restore is not None:
             restore()
+        if bgc_fn is not None:
+            stepper.bgc_update = bgc_fn
         if fileset is not None:
             fileset.close()
 
@@ -216,7 +238,32 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
             f"{100 * ms / step_ms:6.2f} %")
     say(f"[layers]   {'rest':24s} {rest:9.3f} ms/step "
         f"{100 * rest / step_ms:6.2f} %")
+    if bgc_args:
+        out.update(bgc_block(*bgc_args, acts, device, out, say))
     return out
+
+
+def bgc_block(args, kw, acts, device, out, say):
+    """One call of the BGC block under torch.profiler: its kernels and
+    their device time, beside the profiled step's."""
+    stepper.bgc_update(*args, **kw)          # warm, outside the window
+    _sync(device)
+    with torch.profiler.profile(activities=acts) as prof:
+        stepper.bgc_update(*args, **kw)
+        _sync(device)
+    kernels = _device_kernels(prof)
+    n = sum(c for c, _ in kernels.values())
+    ms = 1e-3 * sum(us for _, us in kernels.values())
+    if n == 0:
+        say("[bgc] not measured: the profiler saw no device kernels")
+        return {}
+    step_n = out.get("kernels_per_step", 0.0)
+    share = n / step_n if step_n else float("nan")
+    say(f"[bgc] one call of stepper.bgc_update: {n} kernels "
+        f"({share:.4f} of the step's {step_n:.0f}), kernel time "
+        f"{ms:.3f} ms ({ms / out.get('device_ms', float('nan')):.4f} of "
+        f"the step's)")
+    return {"bgc_kernels": n, "bgc_device_ms": ms, "bgc_share": share}
 
 
 def main():

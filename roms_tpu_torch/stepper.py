@@ -11,7 +11,9 @@ and, under LMD_KPP, both vertical-mixing updates through
 reference's batched tracer branch, whose river flux fix sits inside the
 stencil.  That one gate decides the tracer path: never the device, the
 dtype or a build.  Each wrapper launches its CUDA kernel on the card and
-runs its plain version on the CPU.  Every feature the port does not
+runs its plain version on the CPU.  Point loads (pipes, mCDR releases)
+enter both tracer paths; the BGC column physics (`bgc_update`) follows
+the corrector's boundary conditions.  Every feature the port does not
 carry yet raises NotImplementedError before any work is done.
 """
 
@@ -20,6 +22,9 @@ from __future__ import annotations
 import torch
 
 from roms_tpu_torch import vcoord
+from roms_tpu_torch.bgc import bec
+from roms_tpu_torch.bgc.api import BGCContext, get_model
+from roms_tpu_torch.cdr import apply_cdr_all
 from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.grid import Grid
 from roms_tpu_torch.ops import advection as adv
@@ -34,11 +39,9 @@ from roms_tpu_torch.state import Forcing, OceanState
 AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
 
 
-def _unsupported(cfg: ModelConfig, forcing: Forcing, grid: Grid):
+def _unsupported(cfg: ModelConfig):
     """Names of the enabled features the port does not carry yet."""
     checks = (
-        ("forcing.cdr", forcing.cdr is not None),
-        ("bgc_model", cfg.bgc_model != "none"),
         ("adv_isoneutral", cfg.adv_isoneutral),
         ("non_hydrostatic", cfg.non_hydrostatic),
         ("tracer_diagnostics", cfg.tracer_diagnostics),
@@ -107,7 +110,7 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
               cfg: ModelConfig, first_step: bool, halo) -> OceanState:
     """Step body with a pluggable halo refresh; w1/w2 are the host
     fast-time weights."""
-    missing = _unsupported(cfg, forcing, grid)
+    missing = _unsupported(cfg)
     if missing:
         raise NotImplementedError(
             "not ported in this slice: " + ", ".join(missing))
@@ -376,15 +379,20 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     pipe = _pipe_load(forcing, pmn, cfg) if cfg.pipe_source else None
 
     if use_kernel:
-        # the stage's base content is hz_n * t_sec_c: the pipe load and the
-        # solar + nonlocal KPP terms fold into t_sec_c (additive terms
-        # commute; reference: step3d_t_ISO.F:927-934, :961-1005).  The
-        # pipe load is folded here as the reference's batched branch adds
-        # it (roms_tpu/stepper.py:562-569); the JAX package's kernel
-        # branch (roms_tpu/stepper.py:488-534) leaves it out.
-        t_sec_c = state.t if pipe is None else state.t + pipe / hz_n
+        # the stage's base content is hz_n * t_sec_c: the pipe and mCDR
+        # loads and the solar + nonlocal KPP terms fold into t_sec_c
+        # (additive terms commute; reference: step3d_t_ISO.F:859-902,
+        # :927-934, :961-1005).  The point loads are folded here as the
+        # reference's batched branch adds them (roms_tpu/stepper.py:
+        # 562-574); the JAX package's kernel branch (roms_tpu/stepper.py:
+        # 488-534) leaves both out.
+        load = pipe
+        if forcing.cdr is not None:
+            load = apply_cdr_all(torch.zeros_like(state.t) if load is None
+                                 else load, forcing.cdr, pmn, cfg.dt)
+        t_sec_c = state.t if load is None else state.t + load / hz_n
         if src_t is not None:
-            if pipe is None:
+            if load is None:
                 t_sec_c = t_sec_c.clone()
             t_sec_c[cfg.itemp] += src_t / hz_n
             if src_s is not None:
@@ -407,6 +415,9 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         t_rhs = t_rhs - cfg.dt * pmn[None] * (fc[:, 1:] - fc[:, :-1])
         if pipe is not None:
             t_rhs = t_rhs + pipe
+        if forcing.cdr is not None:
+            # mCDR release injection (reference: step3d_t_ISO.F:859-902)
+            t_rhs = apply_cdr_all(t_rhs, forcing.cdr, pmn, cfg.dt)
         t_rhs[:, -1] += cfg.dt * forcing.stflx    # (step3d_t_ISO.F:956-959)
         if src_t is not None:
             t_rhs[cfg.itemp] += src_t
@@ -442,11 +453,14 @@ def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
                     zeta_new, ubar_new, vbar_new, u_new, v_new, flx_u_c,
                     flx_v_c, we, wi, hz_new, zr_new, zw_new,
                     akv, akt, hbls, hbbl, fast):
-    """Post-corrector tail: tracer BCs -> halo refresh -> final EOS ->
-    state assembly (reference: main.F:469-490).  The t3dmix tendency is
-    already in t_new."""
+    """Post-corrector tail: tracer BCs -> BGC column physics -> halo
+    refresh -> final EOS -> state assembly (reference: main.F:469-490).
+    The t3dmix tendency is already in t_new."""
     t_new = bc.t3dbc(t_new, state.t, u_half, v_half, grid, cfg,
                      forcing.bry, pred_stage=False)
+    if cfg.bgc_model != "none" and cfg.n_bgc > 0:
+        t_new = bgc_update(t_new, state, forcing, grid, cfg, zr_new, zw_new,
+                           hz_new)
     t_new = halo(t_new)  # (reference: step3d_t_ISO.F:1167-1177)
 
     # final density for diagnostics/output (reference: main.F:479)
@@ -464,6 +478,40 @@ def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
         flx_u=flx_u_c, flx_v=flx_v_c, we=we, wi=wi, rho=eos_new.rho,
         akv=akv, akt=akt, hbls=hbls, hbbl=hbbl,
         iic=state.iic + 1, time=state.time + cfg.dt)
+
+
+def bgc_update(t_new, state, forcing, grid, cfg: ModelConfig, zr_new, zw_new,
+               hz_new):
+    """The BGC engine's interior tendency and surface flux applied to the
+    updated tracers, after their boundary conditions and before the halo
+    refresh, where the reference calls MARBL/BEC (reference:
+    step3d_t_ISO.F:1158-1175); returns the new tracer array.
+
+    The engine's atmospheric forcing fields ride on `forcing.bgc`
+    (reference: bgc_forces.F via set_forces).  The gas-exchange wind
+    speed is the bulk `wspd` when the case carries one, else inverted
+    from the kinematic stress (reference: bec2_driver.F:186-192 BULK_FRC
+    branch vs WS()).  No saved state is carried (`saved=None`)."""
+    model = get_model(cfg.bgc_model)
+    i0 = cfg.nt - cfg.n_bgc
+    ctx = BGCContext(
+        temp=t_new[cfg.itemp],
+        salt=t_new[cfg.isalt] if cfg.salinity else None,
+        z_r=zr_new, z_w=zw_new, hz=hz_new, srflx=forcing.srflx,
+        swr_frac=state.swrf, rmask=grid.rmask, dt=cfg.dt, time=state.time)
+    forc = dict(forcing.bgc) if forcing.bgc else {}
+    if "wspd" not in forc:
+        sustr_r = 0.5 * (forcing.sustr + shift(forcing.sustr, 0, 1))
+        svstr_r = 0.5 * (forcing.svstr + shift(forcing.svstr, 1, 0))
+        forc["wspd"] = bec.wind_speed_from_stress(sustr_r, svstr_r, cfg.rho0)
+    trc = t_new[i0:]
+    dtr, _ = model.interior_tendency(trc, ctx, None, forc)
+    sfl = model.surface_flux(trc, ctx, forc)
+    t_bgc = trc + cfg.dt * dtr
+    t_bgc[:, -1] += cfg.dt * sfl / hz_new[-1]
+    if cfg.masking:
+        t_bgc = t_bgc * grid.rmask[None, None]
+    return torch.cat([t_new[:i0], t_bgc], dim=0)
 
 
 def step(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,

@@ -8,8 +8,10 @@ float64 on the CPU, on the synthetic USWC inputs (199x99x50, nt=2):
     the file; `driver.run`'s forcing_fn hook in both forms;
 (c) `uswc.generate_inputs` writes the JAX package's files: the same
     variables, dimensions, attributes and values; climatology edge series
-    equal the JAX package's; `assemble` refuses bulk, tidal and BGC
-    forcing files and mCDR releases with NotImplementedError;
+    equal the JAX package's; `assemble` accepts bulk, tidal and BGC
+    forcing files and mCDR releases, and `forcing_fn` carries each
+    (tests/test_torch_bulk_tides.py and tests/test_torch_cdr.py hold them
+    to the JAX package's);
 (d) after `assemble`, the grid (with the sponge-enhanced visc2_r, visc2_p,
     diff2), the initial state and `forcing0` (river faces, pipe tables,
     `pipe_idx` an int32) equal the JAX package's field by field at 1e-13,
@@ -20,8 +22,8 @@ float64 on the CPU, on the synthetic USWC inputs (199x99x50, nt=2):
     its frozen oracle (tests/data/{case}_oracle.txt) at the per-column
     rtols of tests/realcase_utils.py:check_against_oracle.
 No JAX step runs here: (e) holds the port to the oracles directly.  And
-(f) the real-data and point-source modules import nothing of JAX or of
-the JAX package.
+(f) the real-data, point-source, bulk, tide, BGC and mCDR modules import
+nothing of JAX or of the JAX package.
 """
 
 import inspect
@@ -186,21 +188,33 @@ def test_climatology_edge_series_matches_jax(edge, workdir):
     ("example_input_tides.nc", "tidal"),
     ("example_input_bgc_surface_forcing_clim.nc", "BGC"),
     (None, "mCDR")])
-def test_assemble_refuses_what_is_not_ported(extra, what, workdir):
+def test_assemble_accepts_what_is_ported(extra, what, workdir):
+    """Flux_frc with one more input: the bulk-COARE, tidal or BGC forcing
+    file, or mCDR releases; `forcing_fn` carries what it brings."""
     inp = str(workdir / "port_inputs")
-    tuswc.generate_inputs(inp)
+    paths = tuswc.generate_inputs(inp)
     text = tflux.BENCHMARK_IN
     if extra is not None:
         text = text.replace(
             "{inp}/example_input_boundary_forcing.nc\n",
             "{inp}/example_input_boundary_forcing.nc\n     {inp}/" + extra
             + "\n")
-    infile = workdir / f"refuse_{what}.in"
+    infile = workdir / f"accept_{what}.in"
     infile.write_text(text.format(inp=inp, ntimes=3))
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 10"):
-        texperiment.assemble(str(infile), tflux.base_config(), nz=tuswc.NZ,
-                             dtype=F64, device="cpu",
-                             cdr_mode="3d" if extra is None else None)
+    exp = texperiment.assemble(
+        str(infile), tflux.base_config(), nz=tuswc.NZ, dtype=F64,
+        device="cpu", cdr_mode="3d" if extra is None else None,
+        cdr_file=paths["cdr_3d"] if extra is None else None)
+    try:
+        frc = exp.forcing_fn(float(exp.state.time), exp.forcing0, exp.state)
+    finally:
+        exp.fileset.close()
+    assert exp.forcing_fn.needs_state == (what == "bulk")
+    carried = {"bulk": frc.bgc is not None and "wspd" in frc.bgc,
+               "tidal": exp.tides is not None and frc.ptide is not None,
+               "BGC": frc.bgc is not None and "pco2_air" in frc.bgc,
+               "mCDR": frc.cdr is not None and frc.cdr.flx_3d is not None}
+    assert carried[what] and sum(carried.values()) == 1
 
 
 def test_fileset_close_releases_every_file(workdir, monkeypatch):
@@ -295,9 +309,13 @@ def test_real_data_path_imports_no_jax():
         "from roms_tpu_torch import experiment, forcing, runconfig, audit\n"
         "from roms_tpu_torch import sponge, driver\n"
         "from roms_tpu_torch.io import async_io, input, netcdf\n"
-        "from roms_tpu_torch.ops import rivers\n"
+        "from roms_tpu_torch.ops import rivers, bulk\n"
+        "from roms_tpu_torch import bridge, cdr, remap, stepper, tides\n"
+        "from roms_tpu_torch.bgc import api, bec, carbonate, npzd\n"
         "from roms_tpu_torch.cases import (flux_frc, pipes_ana, pipes_real,\n"
-        "                                  rivers_ana, rivers_real, uswc)\n"
+        "                                  rivers_ana, rivers_real, uswc,\n"
+        "                                  bgc_real, cdr_real, cdr_3d,\n"
+        "                                  cdr_dp, cdr_parameterized)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'roms_tpu', 'h5py')]\n"
         "assert not bad, bad\n"

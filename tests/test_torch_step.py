@@ -13,8 +13,9 @@
     step of the port with no module of jax, flax or roms_tpu imported;
 (e) roms_tpu_torch.profile_step reads every layer of a tiny step (the
     batched tracer branch where the tracer kernel does not cover the
-    configuration, and `forcing_fn` where a case has one) and puts the
-    layers back; chip_smoke.py fails with no CUDA device;
+    configuration, `forcing_fn` where a case has one, and the BGC block
+    of a BGC configuration) and puts the layers back; chip_smoke.py fails
+    with no CUDA device;
 (f) a case setup builds on the card by default, and raises on a host
     without one rather than falling back to the CPU.
 """
@@ -35,9 +36,10 @@ from roms_tpu.cases import filament as jfilament
 from roms_tpu.ops.weights import set_weights
 from roms_tpu.stepper import step as jstep
 
-from roms_tpu_torch import bridge, profile_step
+from roms_tpu_torch import bridge, profile_step, stepper
 from roms_tpu_torch.cases import bench_production as tbp
 from roms_tpu_torch.cases import filament as tfilament
+from roms_tpu_torch.cases import obc_basin as tbasin
 from roms_tpu_torch.cases import rivers_ana as trivers_ana
 from roms_tpu_torch.driver import run
 from roms_tpu_torch.experiment import Experiment
@@ -202,6 +204,21 @@ def test_profile_step_reads_forcing_fn_of_a_built_case():
     assert len(calls) == nsteps and closed == [True]
     assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS} - {
         "vmix_update", "visc3d"} | {"forcing_fn"}
+
+
+def test_profile_step_reads_the_bgc_block():
+    """A BGC configuration (the closed basin with MARBL's 32 tracers) reads
+    `stepper.bgc_update` as a layer and puts it back; the profiler sees no
+    device kernels on the CPU, so the bgc reading is left out."""
+    cfg = tbasin.config("closed").replace(
+        nx=12, ny=10, nz=4, ndtfast=6, dt=30.0, nt=33,
+        bgc_model="marbl32", n_bgc=32)
+    before = stepper.bgc_update
+    out = profile_step.profile(cfg, torch.device("cpu"), dtype=F64,
+                               say=lambda *a: None, case=tbasin)
+    assert stepper.bgc_update is before
+    assert "bgc_update" in out["layers_ms"] and "bgc_kernels" not in out
+    assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
 
 
 def test_chip_smoke_fails_without_cuda():
