@@ -5,7 +5,8 @@
 
 Builds the port's three CUDA kernels from the sources in this checkout
 and drives its main paths through `roms_tpu_torch.driver.run` (the
-real-data cases through `Experiment.run`), in phases;
+real-data cases through `Experiment.run`, the command line through
+`roms_tpu_torch.__main__.main`), in phases;
 each prints its own lines and the first failure raises, so the exit code
 is nonzero:
 
@@ -84,6 +85,19 @@ is nonzero:
      start time; then `profile_step` on each: kernels a step, busy share,
      the BGC block's kernels and share, and the batched tracer branch's
      ms at nt=34.
+ 13. the command line and its output on the card: `__main__.main` in this
+     process on the USWC grid and initial files at 199x99x50 f32 (zero
+     forcing, closed boundaries), 10 steps with history every 5 and
+     restart every 10 through the async writer, every record finite;
+     the restart's write and read times, and ms/step with a history
+     record every step written in the loop, by the async hook and not at
+     all (the host ms a record, and the async file against the
+     synchronous one, bitwise); `python -m roms_tpu_torch` as its own
+     process, 3 steps; Flux_frc (all three kernels, `forcing_fn`) 6 steps
+     against 3 + `write_restart`/`read_restart` + 3: bitwise in float64,
+     with no state written into after the hook got it, and in float32 the
+     largest relative difference a field with the forcing clock's gap
+     (the float32 model time), bitwise again on the unbroken run's clock.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after (phase 12's profile excepted: it
@@ -147,7 +161,7 @@ def phase_device():
     say(f"[0 device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
     say(smi)
-    return torch.device("cuda", 0), name
+    return torch.device("cuda", 0), name, smi
 
 
 # ------------------------------------------------------------------ phase 1
@@ -1157,10 +1171,362 @@ def tidal_phase_error(exp, ref64):
             f"{float(cos_err.max()):.3e}")
 
 
+# ------------------------------------------------------------------ phase 13
+# the command line's runtime input: Flux_frc's time stepping, vertical
+# grid and physical constants on its grid and initial files, no forcing
+# files (the command line runs on zero forcing, roms_tpu/__main__.py:63)
+CLI_IN = """\
+title:
+    roms_tpu_torch command line on the USWC grid
+
+time_stepping: NTIMES   dt[sec]  NDTFAST  NINFO
+               {ntimes}        20       30       1
+
+S-coord: THETA_S,   THETA_B,    hc (m)
+          6.0D0        6.0D0     25.0D0
+
+rho0:
+      1027.5
+
+lateral_visc:   VISC2
+                 0.
+
+tracer_diff2: TNU2(1:NT)
+ 0. 0.
+
+bottom_drag:     RDRG [m/s],  RDRG2,  Zob [m]
+                  0.E-4       1.0E-3   1.E-2
+
+gamma2:
+                  1.D0
+
+grid:  filename
+     {grid}
+
+initial: NRREC  filename
+          0
+     {init}
+
+output_root_name:
+     {root}
+"""
+CLI_STEPS, CLI_NHIS, CLI_NRST = 10, 5, 10
+
+
+def cli_input(workdir, tag, ntimes):
+    """(runtime input file, output root) of a command-line run on the
+    USWC grid and initial files under `workdir`."""
+    from roms_tpu_torch.cases import uswc
+    paths = uswc.generate_inputs(os.path.join(workdir, "input_data"))
+    infile = os.path.join(workdir, f"{tag}.in")
+    root = os.path.join(workdir, tag)
+    with open(infile, "w") as f:
+        f.write(CLI_IN.format(ntimes=ntimes, grid=paths["grid"],
+                              init=paths["initial"], root=root))
+    return infile, root
+
+
+def cli_args(infile, *extra):
+    from roms_tpu_torch.cases import uswc
+    return [infile, "--nx", str(uswc.NX), "--ny", str(uswc.NY), "--nz",
+            str(uswc.NZ), *extra]
+
+
+def cli_config(infile):
+    """The configuration `__main__.main` builds from `infile` (nt=2)."""
+    from roms_tpu_torch.cases import uswc
+    from roms_tpu_torch.config import ModelConfig
+    from roms_tpu_torch.runconfig import read_inp
+    return read_inp(infile).apply(ModelConfig(
+        nx=uswc.NX, ny=uswc.NY, nz=uswc.NZ, nt=2, salinity=True,
+        nonlin_eos=True, ew_periodic=False, ns_periodic=False))
+
+
+def check_file_finite(path, what):
+    """Every variable of a NetCDF file finite; returns its record count."""
+    from roms_tpu_torch.io.netcdf import open_dataset
+    with open_dataset(path) as ds:
+        for name in ds.variables:
+            if not np.isfinite(np.asarray(ds[name][...])).all():
+                raise AssertionError(f"{what}: {name} is not finite")
+        return ds["ocean_time"].shape[0] if "ocean_time" in ds else 1
+
+
+def phase_cli(workdir):
+    """`__main__.main` in this process at 199x99x50 f32: history every
+    CLI_NHIS steps, restart every CLI_NRST, async writers; the launch
+    counts its configuration's gates select; every record finite."""
+    from roms_tpu_torch.__main__ import main as cli
+    from roms_tpu_torch.io.netcdf import open_dataset
+    infile, root = cli_input(workdir, "cli", CLI_STEPS)
+    cfg = cli_config(infile)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli(cli_args(infile, "--nhis", str(CLI_NHIS), "--nrst",
+                      str(CLI_NRST)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"13 cli: main returned {rc}")
+    check_counts(counts, CLI_STEPS, cfg, "13 cli")
+    nrec = check_file_finite(root + "_his.nc", "13 cli history")
+    if nrec != CLI_STEPS // CLI_NHIS:
+        raise AssertionError(f"13 cli: {nrec} history records, expected "
+                             f"{CLI_STEPS // CLI_NHIS}")
+    check_file_finite(root + "_rst.nc", "13 cli restart")
+    with open_dataset(root + "_rst.nc") as ds:
+        iic = int(ds["iic"][0])
+    if iic != CLI_STEPS:
+        raise AssertionError(f"13 cli: restart at step {iic}")
+    say(f"[13 cli] python -m roms_tpu_torch in process, {cfg.nx}x{cfg.ny}x"
+        f"{cfg.nz} nt={cfg.nt} f32, {CLI_STEPS} steps, history every "
+        f"{CLI_NHIS} and restart every {CLI_NRST} (async): {wall:.3f} s "
+        f"with reading the inputs; {nrec} history records and the restart "
+        f"at step {iic}, every value finite; launches tracer {counts[0]}, "
+        f"solve {counts[1]}, kpp {counts[2]}")
+    return infile, root
+
+
+# three runs of each mode in turns, so that the host's drift falls on all
+OUTPUT_TURNS = ("off", "sync", "async", "async", "sync", "off", "off",
+                "sync", "async")
+
+
+def phase_output_cost(device, infile, root, warm=2, nsteps=8):
+    """The restart read and write times; then the same steps from the
+    command line's restart with no output, with a history record every
+    step written in the loop, and with the same records written by the
+    async hook: ms/step from the end of the warm-up to the return of
+    `run` (which drains the async writer), the host ms a record in the
+    loop, and the async history file against the synchronous one."""
+    from roms_tpu_torch.driver import run
+    from roms_tpu_torch.io import (HistoryWriter, read_grid, read_restart,
+                                   write_restart)
+    from roms_tpu_torch.io.async_io import make_async_hook
+    from roms_tpu_torch.io.netcdf import open_dataset
+    from roms_tpu_torch.runconfig import read_inp
+    from roms_tpu_torch.state import zero_forcing
+    cfg = cli_config(infile)
+    grid = read_grid(read_inp(infile).paths["grid"], cfg,
+                     dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    st0 = read_restart(root + "_rst.nc", cfg, dtype=torch.float32,
+                       device=device)
+    torch.cuda.synchronize()
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    write_restart(root + "_rst_copy.nc", st0, cfg)
+    write_ms = 1e3 * (time.perf_counter() - t0)
+    say(f"[13 output] restart of the {cfg.nx}x{cfg.ny}x{cfg.nz} f32 state "
+        f"({os.path.getsize(root + '_rst.nc') / 2**20:.1f} MiB, float64): "
+        f"write {write_ms:.3f} ms, read onto the card {read_ms:.3f} ms")
+    frc = zero_forcing(cfg, torch.float32, device)
+    out = {}
+    for k, mode in enumerate(OUTPUT_TURNS):
+        path = f"{root}_cost_{mode}{k}.nc"
+        hw = None if mode == "off" else HistoryWriter(path, grid, cfg)
+        loop_ms, worker_ms, mark = [], [], {}
+
+        def record(s, i, hw=hw, worker_ms=worker_ms):
+            t = time.perf_counter()
+            hw.write(s)
+            worker_ms.append(1e3 * (time.perf_counter() - t))
+
+        write = None if hw is None else (
+            make_async_hook(record) if mode == "async" else record)
+
+        def hook(s, i, write=write, loop_ms=loop_ms, mark=mark):
+            if i == warm:
+                torch.cuda.synchronize()
+                mark["t0"] = time.perf_counter()
+            if write is not None:
+                t = time.perf_counter()
+                write(s, i)
+                if i > warm:
+                    loop_ms.append(1e3 * (time.perf_counter() - t))
+
+        if write is not None and hasattr(write, "drain"):
+            hook.drain = write.drain
+        reset_counts()
+        st, _ = run(grid, st0, frc, cfg, nsteps=warm + nsteps,
+                    collect_diag=False, step_hook=hook)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - mark["t0"]) / nsteps
+        check_counts(read_counts(), warm + nsteps, cfg, f"13 output {mode}")
+        check_finite(st, f"13 output {mode}")
+        if hw is not None:
+            hw.close()
+            if hw.rec != warm + nsteps:
+                raise AssertionError(f"13 output {mode}: {hw.rec} records")
+        out.setdefault(mode, []).append(ms)
+        rec = "" if hw is None else (
+            f", {np.median(loop_ms):.3f} ms a record in the loop (median of "
+            f"{len(loop_ms)}), {np.median(worker_ms):.3f} ms a record's "
+            f"pulls and write")
+        say(f"[13 output] history {mode}: {ms:.3f} ms/step over {nsteps} "
+            f"steps after {warm} warm-up{rec}")
+    with open_dataset(f"{root}_cost_sync1.nc") as a, \
+            open_dataset(f"{root}_cost_async2.nc") as b:
+        for name in a.variables:
+            if not np.array_equal(np.asarray(a[name][...]),
+                                  np.asarray(b[name][...])):
+                raise AssertionError(f"13 output: async history {name} "
+                                     f"differs from the synchronous one")
+    off = float(np.median(out["off"]))
+
+    def text(mode):
+        med = float(np.median(out[mode]))
+        return (" / ".join(f"{v:.3f}" for v in out[mode])
+                + f" (median {med:.3f}, {med - off:+.3f} against off)")
+    say(f"[13 output] ms/step in turns {', '.join(OUTPUT_TURNS)}: off "
+        f"{text('off')}; history every step sync {text('sync')}, async "
+        f"{text('async')}; the async history file equals the synchronous "
+        f"one bitwise ({warm + nsteps} records)")
+
+
+def phase_cli_subprocess(workdir, nsteps=3):
+    """`python -m roms_tpu_torch` as its own process on the same inputs."""
+    infile, root = cli_input(workdir, "cli_sub", nsteps)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "roms_tpu_torch"]
+                         + cli_args(infile, "--nhis", "1"), cwd=workdir,
+                         env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0 or "run_time" not in res.stdout:
+        raise AssertionError(f"13 cli subprocess: exit {res.returncode}\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    nrec = check_file_finite(root + "_his.nc", "13 cli subprocess")
+    if nrec != nsteps:
+        raise AssertionError(f"13 cli subprocess: {nrec} history records")
+    banner = [ln for ln in res.stdout.splitlines() if "run_time" in ln][0]
+    say(f"[13 cli subprocess] python -m roms_tpu_torch, {nsteps} steps f32, "
+        f"history every step: exit 0 in {wall:.3f} s; {banner.strip()}; "
+        f"{nrec} records, every value finite")
+
+
+def continued(exp, st, nsteps, t0=None):
+    """`nsteps` steps from a restarted state, none of them a first step
+    (the reference's exact restart), with `forcing_fn` called as
+    `driver.run` calls it, at t0 + i*dt, t0 the state's time unless
+    given."""
+    from roms_tpu_torch.driver import _call_forcing_fn
+    from roms_tpu_torch.ops.weights import set_weights
+    from roms_tpu_torch.stepper import step
+    w1, w2, _ = set_weights(exp.cfg.ndtfast)
+    t0 = float(st.time) if t0 is None else t0
+    for i in range(nsteps):
+        frc = _call_forcing_fn(exp.forcing_fn, t0 + i * exp.cfg.dt,
+                               exp.forcing0, st)
+        st = step(st, frc, exp.grid, w1, w2, exp.cfg, first_step=False)
+    return st
+
+
+def state_fields(st):
+    return {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
+            if isinstance(getattr(st, f.name), torch.Tensor)}
+
+
+def phase_exact_restart(device, workdir, nsteps=3):
+    """Flux_frc at 199x99x50 (file forcing, open boundaries, KPP: all
+    three kernels): 2*nsteps steps against nsteps + write_restart /
+    read_restart + nsteps.  Float64: bitwise in every state field, and
+    the state the hook gets unchanged by the next step.  Float32: the
+    largest relative difference a field, from the forcing clock of the
+    restarted run (its start time is the float32 model time), and the
+    same continuation on the unbroken run's clock."""
+    from roms_tpu_torch.cases import flux_frc
+    from roms_tpu_torch.io import read_restart, write_restart
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype)[6:]
+        exp = flux_frc.build(workdir, ntimes=2 * nsteps, dtype=dtype,
+                             device=device)
+        held, moved = [], []
+
+        def immutable(s, i):
+            for old, clones in held:
+                moved.extend(n for n, a in state_fields(old).items()
+                             if not torch.equal(a, clones[n]))
+            held[:] = [(s, {n: a.clone()
+                            for n, a in state_fields(s).items()})]
+
+        try:
+            reset_counts()
+            ref, _ = exp.run(nsteps=2 * nsteps, collect_diag=False,
+                             step_hook=immutable if dtype == torch.float64
+                             else None)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check_counts(counts, 2 * nsteps, exp.cfg, f"13 restart {tag}")
+            if moved:
+                raise AssertionError(f"13 restart: the step wrote into a "
+                                     f"returned state: {sorted(set(moved))}")
+            held.clear()
+            reset_counts()
+            half, _ = exp.run(nsteps=nsteps, collect_diag=False)
+            path = os.path.join(workdir, f"flux_frc_rst_{tag}.nc")
+            write_restart(path, half, exp.cfg)
+            back = read_restart(path, exp.cfg, dtype=dtype, device=device)
+            got = continued(exp, back, nsteps)
+            torch.cuda.synchronize()
+            check_counts(read_counts(), 2 * nsteps, exp.cfg,
+                         f"13 restart {tag} continued")
+            t_start = float(exp.state.time)
+            t_back = float(back.time)
+            if dtype == torch.float32:
+                clocked = continued(exp, back, nsteps,
+                                    t0=t_start + nsteps * exp.cfg.dt)
+        finally:
+            exp.fileset.close()
+        diff = {}
+        for name, a in state_fields(ref).items():
+            b = state_fields(got)[name]
+            diff[name] = float((a.double() - b.double()).abs().max()) / \
+                max(float(a.double().abs().max()), 1e-300)
+        if dtype == torch.float64:
+            bad = [n for n, a in state_fields(ref).items()
+                   if not torch.equal(a, state_fields(got)[n])]
+            if bad:
+                raise AssertionError(
+                    "13 restart f64: not bitwise after the restart: "
+                    + ", ".join(f"{n} {diff[n]:.3e}" for n in bad))
+            say(f"[13 restart] Flux_frc {exp.cfg.nx}x{exp.cfg.ny}x"
+                f"{exp.cfg.nz} f64: {2 * nsteps} steps equal {nsteps} + "
+                f"write_restart/read_restart + {nsteps} bitwise in all "
+                f"{len(diff)} state fields; no step wrote into a state it "
+                f"had returned; launches tracer {counts[0]}, solve "
+                f"{counts[1]}, kpp {counts[2]} a run")
+            continue
+        same = all(torch.equal(a, state_fields(clocked)[n])
+                   for n, a in state_fields(ref).items())
+        worst = sorted(diff.items(), key=lambda kv: -kv[1])
+        say(f"[13 restart] Flux_frc f32: the restarted steps read forcing "
+            f"from t = {t_back:.1f} s (the float32 model time after "
+            f"{nsteps} steps) where the unbroken run read it from "
+            f"{t_start + nsteps * exp.cfg.dt:.1f} s (gap "
+            f"{t_back - t_start - nsteps * exp.cfg.dt:+.1f} s); largest "
+            f"relative difference a field: "
+            + ", ".join(f"{n} {v:.3e}" for n, v in worst)
+            + f"; on the unbroken run's clock the continuation is "
+            f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+        if not same:
+            raise AssertionError("13 restart f32: the continuation on the "
+                                 "unbroken run's clock differs")
+
+
+def phase_output(device, workdir):
+    infile, root = phase_cli(workdir)
+    phase_output_cost(device, infile, root)
+    phase_cli_subprocess(workdir)
+    phase_exact_restart(device, workdir)
+
+
 def main():
     from roms_tpu_torch.ops import _build  # noqa: F401  (fails off the repo)
     t0 = time.perf_counter()
-    device, name = phase_device()
+    device, name, smi = phase_device()
     phase_build()
     phase_kernels(device)
     phase_oracle(device)
@@ -1177,7 +1543,9 @@ def main():
         phase_real_f32(device, workdir)
         ref64 = phase_bgc_f64(device, workdir)
         phase_bgc_f32(device, workdir, ref64)
-    say(f"[done] {time.perf_counter() - t0:.1f} s")
+        phase_output(device, workdir)
+    # the card again, where the end of a long log still shows it
+    say(f"[done] {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

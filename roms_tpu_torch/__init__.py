@@ -15,6 +15,7 @@ point sources and the file-driven real-data cases, bulk-COARE forcing,
 tides, the BGC engines (`bgc/`) and the mCDR releases (`cdr.py`), with
 the three TPU kernels of that step written by hand in CUDA for Hopper
 (`ops/cuda_tracer.py`, `ops/cuda_solve.py`, `ops/cuda_kpp.py`, sources
-under `csrc/`).  Every feature the step does not carry raises
+under `csrc/`), and the command line (`python -m roms_tpu_torch`) with its
+output files, exact restart and host tools (`io/`, `tools/`).  Every feature the step does not carry raises
 `NotImplementedError`.
 """

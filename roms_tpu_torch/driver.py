@@ -53,7 +53,7 @@ def _diag_due(iic: int, ninfo: int) -> bool:
 def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
         collect_diag: bool = True, print_diag: bool = False,
         blowup_check: bool = True, forcing_fn=None, step_hook=None,
-        ninfo: int = 1):
+        ninfo: int = 1, error_log=None, timers=None):
     """Advance `nsteps` baroclinic steps; return (state, diag_rows).
 
     diag_rows[i] = (step_index, avke, avke2b, cu_adv, cu_w) as in the
@@ -62,8 +62,13 @@ def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
     optional set_forces hook f(time_seconds, base_forcing[, state]) ->
     Forcing, called before every step at t0 + i*dt, t0 the state's time
     read once (reference: main.F:385).  step_hook:
-    optional f(state, step_index) after every step.  Steps between
-    diagnostics points never wait on the device.
+    optional f(state, step_index) after every step; a hook with `.drain()`
+    (`io.async_io.make_async_hook`) is drained before `run` returns, so
+    every record is on disk.  Steps between diagnostics points never wait
+    on the device.  error_log: optional monitor.ErrorLog; blowups are
+    queued there and still raised (reference: error_handling_mod.F90).
+    timers: optional monitor.Timers; accumulates the 'step' phase and the
+    step count for the run banner (reference: timers.F, main.F:45-47).
     """
     if nsteps is None:
         nsteps = cfg.ntimes
@@ -81,9 +86,11 @@ def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
                 print(f"{iic:3d} {row[1]:.16E} {row[2]:.16E} "
                       f"{row[3]:.16E} {row[4]:.16E}")
             if blowup_check:
-                check_blowup(row[1:], iic)
+                check_blowup(row[1:], iic, error_log=error_log)
 
     t0 = float(state.time)   # one sync up front; model time advances by dt
+    if timers is not None:
+        timers.tic("step")
     log(state, 0)
     for i in range(nsteps):
         frc = forcing if forcing_fn is None else _call_forcing_fn(
@@ -92,4 +99,9 @@ def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
         log(state, i + 1)
         if step_hook is not None:
             step_hook(state, i + 1)
+    if step_hook is not None and hasattr(step_hook, "drain"):
+        step_hook.drain()        # async writers: everything on disk first
+    if timers is not None:
+        timers.toc("step", sync=state.zeta)
+        timers.nsteps += nsteps
     return state, np.asarray(rows)

@@ -21,7 +21,6 @@ import numpy as np
 import torch
 
 from roms_tpu_torch.config import ModelConfig
-from roms_tpu_torch.io.async_io import IO_LOCK, read_pool
 from roms_tpu_torch.state import BoundaryData, Forcing, zero_forcing
 
 DAY = 86400.0
@@ -47,6 +46,8 @@ class Series:
         self._pending = {}           # record index -> Future (background read)
 
     def _read_locked(self, i: int) -> np.ndarray:
+        # imported here: the io package's readers import this module
+        from roms_tpu_torch.io.async_io import IO_LOCK
         with IO_LOCK:
             return np.asarray(self.read_rec(i), np.float64)
 
@@ -59,6 +60,7 @@ class Series:
         i = int(i) % self.times.size
         if i in self._slot_idx or i in self._pending:
             return
+        from roms_tpu_torch.io.async_io import read_pool
         self._pending[i] = read_pool().submit(self._read_locked, i)
 
     def _rec(self, i: int) -> np.ndarray:
@@ -182,6 +184,37 @@ def pad_bry(a: np.ndarray, cfg: ModelConfig) -> np.ndarray:
     for i in range(i0 + n, n_full):
         out[..., i] = out[..., i - 1]
     return out
+
+
+def coarse2fine(cdata: np.ndarray, ratio: int = 2,
+                gtype: str = "r") -> np.ndarray:
+    """Bilinear refinement of coarse-grid forcing data onto a `ratio`-times
+    finer grid, in numpy on the host (reference: roms_read_write.F:
+    1210-1273 coarse2fine, which hardwires ratio 2; the index map
+    generalizes to fine = r*coarse with the staggering offsets of the
+    reference: rho +0.25, u/v +0.5).
+
+    cdata: (..., nyc, nxc) coarse interior field; returns
+    (..., r*nyc, r*nxc).
+    """
+    r = float(ratio)
+    nyc, nxc = cdata.shape[-2:]
+    ny, nx = int(r * nyc), int(r * nxc)
+    # reference map (r=2): ic = i/2 + 0.25 (rho) / +0.5 (staggered)
+    xi = np.arange(1, nx + 1) / r + (0.5 if gtype == "u" else 0.25) - 1.0
+    yj = np.arange(1, ny + 1) / r + (0.5 if gtype == "v" else 0.25) - 1.0
+    ic = np.clip(np.floor(xi).astype(int), 0, nxc - 2)
+    jc = np.clip(np.floor(yj).astype(int), 0, nyc - 2)
+    xl = np.clip(xi - ic, 0.0, 1.0)
+    yl = np.clip(yj - jc, 0.0, 1.0)
+    c00 = cdata[..., jc[:, None], ic[None, :]]
+    c01 = cdata[..., jc[:, None], ic[None, :] + 1]
+    c10 = cdata[..., jc[:, None] + 1, ic[None, :]]
+    c11 = cdata[..., jc[:, None] + 1, ic[None, :] + 1]
+    wx = xl[None, :]
+    wy = yl[:, None]
+    return ((1 - wy) * ((1 - wx) * c00 + wx * c01)
+            + wy * ((1 - wx) * c10 + wx * c11))
 
 
 class StackSeries:

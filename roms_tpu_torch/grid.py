@@ -137,3 +137,43 @@ def build_grid(cfg: ModelConfig, h, pm, pn, f, rmask, xr=None, yr=None, *,
         dm_p=dm_p, dn_p=dn_p, pm_u=pm_u, pn_u=pn_u, pm_v=pm_v, pn_v=pn_v,
         pmon_u=pmon_u, pnom_v=pnom_v, dndx=dndx, dmde=dmde,
         cs_w=t(cs_w), cs_r=t(cs_r), area=t(area), volume=t(volume))
+
+
+def grid_stiffness(z_w, grid, cfg: ModelConfig):
+    """Maximum grid stiffness ratios rx0 (Beckmann-Haidvogel, bottom
+    slope) and rx1 (Haney, layer-interface slope) over unmasked u/v faces
+    of the interior; purely diagnostic, in float64 numpy on the host
+    (reference: src/grid_stiffness.F grid_stiffness_tile; printed at init,
+    main.F:223-225).
+
+    z_w: (nz+1, jy, ix) rest-state interface depths.  Returns
+    (rx0, rx1) floats."""
+    def host(a):
+        return torch.as_tensor(a).detach().cpu().numpy()
+
+    zw = host(z_w).astype(np.float64)
+    h_ = cfg.halo
+
+    def face_ratios(zw_m, zw_p, mask):
+        # zw_m/zw_p: (nz+1, ...) at the two cells of each face
+        r0 = np.abs((zw_p[0] - zw_m[0]) / (zw_p[0] + zw_m[0]))
+        num = (zw_p[1:] - zw_m[1:] + zw_p[:-1] - zw_m[:-1])
+        den = (zw_p[1:] + zw_m[1:] - zw_p[:-1] - zw_m[:-1])
+        r1 = np.abs(num / den).max(axis=0)
+        if mask is not None:
+            keep = mask.astype(np.float64) > 0.5
+            r0 = np.where(keep, r0, 0.0)
+            r1 = np.where(keep, r1, 0.0)
+        return r0, r1
+
+    sl = (slice(h_, -h_), slice(h_, -h_))
+    um = host(grid.umask)[sl] if cfg.masking else None
+    vm = host(grid.vmask)[sl] if cfg.masking else None
+    # u faces: cell (j, i) vs (j, i-1); v faces: (j, i) vs (j-1, i)
+    r0u, r1u = face_ratios(zw[:, h_:-h_, h_ - 1:-h_ - 1],
+                           zw[:, h_:-h_, h_:-h_], um)
+    r0v, r1v = face_ratios(zw[:, h_ - 1:-h_ - 1, h_:-h_],
+                           zw[:, h_:-h_, h_:-h_], vm)
+    rx0 = max(float(r0u.max()), float(r0v.max()))
+    rx1 = max(float(r1u.max()), float(r1v.max()))
+    return rx0, rx1

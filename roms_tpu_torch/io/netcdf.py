@@ -9,14 +9,16 @@ src/roms_read_write.F create_file / put_global_atts).  Here:
     scipy.io.netcdf_file) and NetCDF-4/HDF5 (magic ``\\x89HDF``, via h5py,
     imported only for such a file), so whole-grid reference input files
     of either flavor load directly, with no `partit` pre-split step.
-  * writing: classic NetCDF-3 64-bit-offset via scipy, one file per run
-    (sharded arrays are gathered before writing; the per-rank
-    PARALLEL_FILES + ncjoin dance of the reference is unnecessary).
+  * writing: classic NetCDF-3 64-bit-offset, one file per run (sharded
+    arrays are gathered before writing; the per-rank PARALLEL_FILES +
+    ncjoin dance of the reference is unnecessary), with each record
+    written in place as it comes (`NCWriter`).
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -150,49 +152,209 @@ def open_dataset(path: str) -> NCDataset:
     raise ValueError(f"{path}: not a NetCDF file (magic={magic[:4]!r})")
 
 
+# NetCDF-3 header tags and types (the classic format specification)
+_ABSENT = b"\0" * 8
+_NC_DIMENSION, _NC_VARIABLE, _NC_ATTRIBUTE = 10, 11, 12
+_NC_CHAR, _NC_INT, _NC_FLOAT = 2, 4, 5
+_NC_TYPE = {("b", 1): 1, ("B", 1): 2, ("c", 1): 2, ("h", 2): 3,
+            ("i", 4): 4, ("f", 4): 5, ("d", 8): 6}
+
+
+def _i4(n: int) -> bytes:
+    return struct.pack(">i", n)
+
+
+def _name(s: str) -> bytes:
+    b = s.encode("latin1")
+    return _i4(len(b)) + b + b"\0" * (-len(b) % 4)
+
+
+def _att(values) -> bytes:
+    """One attribute's type, count and padded values, typed as scipy's
+    netcdf_file types them (str -> char, int -> int, float -> float, an
+    array by its dtype)."""
+    if hasattr(values, "dtype"):
+        a = np.asarray(values)
+        nc_type = _NC_TYPE[a.dtype.char, a.dtype.itemsize]
+    else:
+        sample = values
+        if not isinstance(values, (str, bytes)):
+            try:
+                sample = values[0]
+            except TypeError:
+                pass
+        nc_type = (_NC_INT if isinstance(sample, int) else
+                   _NC_FLOAT if isinstance(sample, float) else _NC_CHAR)
+    if nc_type == _NC_CHAR:
+        a = np.asarray(values, "S")
+        data, count = a.tobytes(), a.itemsize
+    else:
+        code = {v: k[0] for k, v in _NC_TYPE.items()}[nc_type]
+        a = np.asarray(values, ">" + code)
+        data, count = a.tobytes(), a.size
+    return _i4(nc_type) + _i4(count) + data + b"\0" * (-len(data) % 4)
+
+
+def _att_array(attrs: Mapping[str, Any]) -> bytes:
+    if not attrs:
+        return _ABSENT
+    return (_i4(_NC_ATTRIBUTE) + _i4(len(attrs))
+            + b"".join(_name(k) + _att(v) for k, v in attrs.items()))
+
+
+class _Var:
+    def __init__(self, name, dims, dtype, attrs, shape, isrec):
+        self.name, self.dims, self.dtype = name, tuple(dims), dtype
+        self.attrs, self.shape, self.isrec = dict(attrs), shape, isrec
+        self.pending = None        # data written before the layout is fixed
+        self.begin = self.vsize = 0
+
+
 class NCWriter:
     """Streaming NetCDF-3 (64-bit offset) writer with one unlimited record
     dimension, mirroring the reference's nccreate/ncwrite layer
-    (reference: src/nc_read_write.F:129-232)."""
+    (reference: src/nc_read_write.F:129-232).
+
+    Dimensions, variables and attributes are defined first.  The layout is
+    fixed, and the header written, at the first record write (or at `sync`
+    or `close`); from then on each record goes straight to its place in
+    the file, so a record costs its own bytes and no more, and defining a
+    variable raises.  Data of non-record variables written before that is
+    held until the header is out.  (scipy's netcdf_file, which the JAX
+    package writes with, keeps every record in memory and rewrites the
+    whole file at each sync.)  The files read back as scipy's do: the same
+    header order (non-record variables by decreasing shape, then the
+    record variables), big-endian data, records not written left zero."""
 
     def __init__(self, path: str, attrs: Optional[Mapping[str, Any]] = None):
-        from scipy.io import netcdf_file
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self._f = netcdf_file(path, "w", version=2, mmap=False)
         self.path = path
-        self._nrec = 0
+        self._fp = open(path, "w+b")
+        self._attrs = dict(attrs or {})
+        self._dims: Dict[str, Optional[int]] = {}
+        self._vars: Dict[str, _Var] = {}
         self._rec_dim: Optional[str] = None
-        for k, v in (attrs or {}).items():
-            setattr(self._f, k, v)
+        self._nrec = 0
+        self._fixed = False
+        self._recsize = 0
+        self._rec_start = 0
+
+    @property
+    def dimensions(self) -> Dict[str, Optional[int]]:
+        return dict(self._dims)
+
+    def _defining(self, what: str):
+        if self._fixed:
+            raise RuntimeError(f"{self.path}: {what} after the first record "
+                               "or sync: the layout is fixed")
 
     def create_dim(self, name: str, size: Optional[int]):
-        self._f.createDimension(name, size)
+        self._defining(f"dimension {name!r}")
+        self._dims[name] = size
         if size is None:
             self._rec_dim = name
 
     def create_var(self, name: str, dims: Sequence[str], dtype="f8",
                    attrs: Optional[Mapping[str, Any]] = None):
-        v = self._f.createVariable(name, dtype, tuple(dims))
-        for k, a in (attrs or {}).items():
-            setattr(v, k, a)
-        return v
+        self._defining(f"variable {name!r}")
+        dt = np.dtype(dtype)
+        if (dt.char, dt.itemsize) not in _NC_TYPE:
+            raise ValueError(f"NetCDF 3 does not support type {dt}")
+        isrec = bool(dims) and self._dims[dims[0]] is None
+        shape = tuple(self._dims[d] for d in dims[1 if isrec else 0:])
+        self._vars[name] = _Var(name, dims, dt.newbyteorder(">"),
+                                attrs or {}, shape, isrec)
+
+    def _fix_layout(self):
+        """Order the variables as scipy does, size them, write the header
+        and the non-record data held so far."""
+        if self._fixed:
+            return
+        self._fixed = True
+        vs = sorted(self._vars.values(),
+                    key=lambda v: (-1,) if v.isrec else v.shape, reverse=True)
+        nrecvars = sum(v.isrec for v in vs)
+        for v in vs:
+            n = int(np.prod(v.shape, dtype=np.int64)) * v.dtype.itemsize
+            v.vsize = n + (-n % 4 if not v.isrec or nrecvars > 1 else 0)
+        self._recsize = sum(v.vsize for v in vs if v.isrec)
+        dimids = {d: i for i, d in enumerate(self._dims)}
+
+        def header(begins):
+            h = [b"CDF\x02", _i4(self._nrec)]
+            h.append(_i4(_NC_DIMENSION) + _i4(len(self._dims))
+                     + b"".join(_name(d) + _i4(n or 0)
+                                for d, n in self._dims.items())
+                     if self._dims else _ABSENT)
+            h.append(_att_array(self._attrs))
+            if vs:
+                h.append(_i4(_NC_VARIABLE) + _i4(len(vs)))
+                for v, begin in zip(vs, begins):
+                    h.append(_name(v.name) + _i4(len(v.dims))
+                             + b"".join(_i4(dimids[d]) for d in v.dims)
+                             + _att_array(v.attrs)
+                             + _i4(_NC_TYPE[v.dtype.char, v.dtype.itemsize])
+                             + _i4(v.vsize) + struct.pack(">q", begin))
+            else:
+                h.append(_ABSENT)
+            return b"".join(h)
+
+        pos = len(header([0] * len(vs)))
+        for v in vs:
+            v.begin = pos
+            pos += v.vsize
+        self._fp.write(header([v.begin for v in vs]))
+        self._rec_start = pos - self._recsize
+        self._fp.truncate(self._rec_start)
+        for v in vs:
+            if v.pending is not None:
+                self._put(v.begin, v.pending)
+                v.pending = None
+
+    def _put(self, pos: int, a: np.ndarray):
+        self._fp.seek(pos)
+        self._fp.write(a.data)
 
     def write(self, name: str, data, rec: Optional[int] = None):
-        v = self._f.variables[name]
-        data = np.asarray(data)
-        if rec is None:
-            v[...] = data
-        else:
-            v[rec] = data
-            self._nrec = max(self._nrec, rec + 1)
+        v = self._vars[name]
+        a = np.asarray(data)
+        if v.isrec and rec is None:       # every record of the variable
+            for r, row in enumerate(a):
+                self.write(name, row, rec=r)
+            return
+        if not v.isrec:
+            # `rec` of a fixed-size variable indexes its first dimension
+            shape = v.shape if rec is None else v.shape[1:]
+            a = np.ascontiguousarray(np.broadcast_to(a, shape), v.dtype)
+            if self._fixed:
+                self._put(v.begin + (0 if rec is None else rec * a.nbytes), a)
+            elif rec is None:
+                v.pending = a.copy()
+            else:
+                if v.pending is None:
+                    v.pending = np.zeros(v.shape, v.dtype)
+                v.pending[rec] = a
+            return
+        a = np.ascontiguousarray(np.broadcast_to(a, v.shape), v.dtype)
+        self._fix_layout()
+        self._put(v.begin + rec * self._recsize, a)
+        if rec >= self._nrec:
+            self._nrec = rec + 1
+            self._fp.seek(4)
+            self._fp.write(_i4(self._nrec))
+        end = self._rec_start + self._nrec * self._recsize
+        if self._fp.seek(0, os.SEEK_END) < end:
+            self._fp.truncate(end)
 
     def sync(self):
-        self._f.sync()
+        self._fix_layout()
+        self._fp.flush()
 
     def close(self):
-        if self._f is not None:
-            self._f.close()
-            self._f = None
+        if self._fp is not None:
+            self._fix_layout()
+            self._fp.close()
+            self._fp = None
 
     def __enter__(self):
         return self

@@ -22,7 +22,8 @@ float64 on the CPU, on the synthetic USWC inputs (199x99x50, nt=2):
     its frozen oracle (tests/data/{case}_oracle.txt) at the per-column
     rtols of tests/realcase_utils.py:check_against_oracle.
 No JAX step runs here: (e) holds the port to the oracles directly.  And
-(f) the real-data, point-source, bulk, tide, BGC and mCDR modules import
+(f) the real-data, point-source, bulk, tide, BGC and mCDR modules, the
+output writers, the monitor, the command line and the host tools import
 nothing of JAX or of the JAX package.
 """
 
@@ -307,8 +308,11 @@ def test_real_data_path_imports_no_jax():
     code = (
         "import sys\n"
         "from roms_tpu_torch import experiment, forcing, runconfig, audit\n"
-        "from roms_tpu_torch import sponge, driver\n"
-        "from roms_tpu_torch.io import async_io, input, netcdf\n"
+        "from roms_tpu_torch import sponge, driver, monitor, grid\n"
+        "from roms_tpu_torch import __main__\n"
+        "from roms_tpu_torch.io import (async_io, input, netcdf, output,\n"
+        "                               bgc_io, zslice, extract)\n"
+        "from roms_tpu_torch.tools import grid_gen, nc3to4z, nesting, sample\n"
         "from roms_tpu_torch.ops import rivers, bulk\n"
         "from roms_tpu_torch import bridge, cdr, remap, stepper, tides\n"
         "from roms_tpu_torch.bgc import api, bec, carbonate, npzd\n"

@@ -102,3 +102,33 @@ def assert_state_close(got, ref_state, tol, loose=None):
         np.testing.assert_allclose(got[name], a, rtol=0,
                                    atol=loose.get(name, tol) * scale,
                                    err_msg=name)
+
+
+# global attributes that name the package or the commit that wrote a file
+PACKAGE_ATTRS = ("type", "git_hash")
+
+
+def assert_same_nc(port_path, jax_path, tol=None, skip_attrs=PACKAGE_ATTRS):
+    """Two NetCDF files hold the same dimensions, global attributes (apart
+    from `skip_attrs`), variables, variable dimensions and attributes, and
+    data: bitwise, or within rtol = atol = tol * max(1, max|ref|) where
+    `tol` is given (NaN where the reference has NaN)."""
+    from roms_tpu_torch.io.netcdf import open_dataset
+    with open_dataset(port_path) as a, open_dataset(jax_path) as b:
+        assert a.dimensions == b.dimensions
+        assert {k: v for k, v in a.attrs.items() if k not in skip_attrs} \
+            == {k: v for k, v in b.attrs.items() if k not in skip_attrs}
+        assert sorted(a.variables) == sorted(b.variables)
+        for name in b.variables:
+            va, vb = a[name], b[name]
+            assert va.dims == vb.dims, name
+            assert va.attrs == vb.attrs, name
+            assert va.dtype == vb.dtype, name
+            x, y = np.asarray(va[...]), np.asarray(vb[...])
+            if tol is None:
+                np.testing.assert_array_equal(x, y, err_msg=name)
+            else:
+                scale = max(1.0, float(np.nanmax(np.abs(y)))) \
+                    if np.isfinite(y).any() else 1.0
+                np.testing.assert_allclose(x, y, rtol=tol, atol=tol * scale,
+                                           err_msg=name)
