@@ -8,7 +8,7 @@ and drives its main paths through `roms_tpu_torch.driver.run` (the
 real-data cases through `Experiment.run`, the command line through
 `roms_tpu_torch.__main__.main`), in phases;
 each prints its own lines and the first failure raises, so the exit code
-is nonzero:
+is nonzero (the whole script takes about 8 minutes on an H100):
 
   0. device: a CUDA device is required; prints its name and the
      `nvidia-smi` name/power limit line; TF32 off.
@@ -98,6 +98,26 @@ is nonzero:
      with no state written into after the hook got it, and in float32 the
      largest relative difference a field with the forcing clock's gap
      (the float32 model time), bitwise again on the unbroken run's clock.
+ 14. the step's options and the nested workflow: (a) production 48x32x16
+     nt=4 in float64, 3 steps on the card against the CPU, with the
+     non-hydrostatic projection and the momentum budget (tracer, solve and
+     KPP kernels), and with isoneutral mixing, the tracer budget and the
+     upscale capture (solve and KPP; the tracer kernel 0 times), every
+     state field, budget term and boundary strip at phase 4's tolerances,
+     the arrays bench_production.OPTION_CONDITIONED_TOL names for the set
+     at 1e-8;
+     (b) the nested parent/child flow of tests/test_nested_flow.py
+     (cases/nested_basin.py) in float64 on the card: its checks, and its
+     numbers against the JAX package's flow (tests/data/
+     nested_flow_jax.txt) at rtol 1e-9; (c) production 384x192x60 nt=34
+     float32 through `full_width` (1 warm-up + 3 timed steps) with each
+     option set: the first with a million particles advanced after every
+     step (their ms, the active count, the clamp counters, one
+     ParticleWriter record), the last step's res/res0, one projection's
+     ms and kernels, the same projection in float64, and the line
+     preconditioner's ms and kernels; the second with an UpscaleWriter
+     after every step, then `profile_step` for the batched tracer branch
+     and the isoneutral pass; ms/step beside phase 6's and peak memory.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after (phase 12's profile excepted: it
@@ -711,12 +731,18 @@ def analytic(case, cfg, device):
     return start
 
 
-def full_width(start, warm, nsteps, what, timings):
+# ms/step of each full_width run of this call, by its tag
+MS_PER_STEP = {}
+
+
+def full_width(start, warm, nsteps, what, timings, hook=None):
     """Drive the Experiment that `start()` returns through Experiment.run:
     warm-up steps, then timed steps between two synchronizes; checks
     finiteness and the launch counts; prints the host time a step spent
-    in `forcing_fn` where the run has one; returns (the kernels' JSON rows
-    with `timings`, else None; the final state; the experiment)."""
+    in `forcing_fn` where the run has one; `hook(state, iic)`, where
+    given, runs after every step, inside the timed window for the timed
+    steps; returns (the kernels' JSON rows with `timings`, else None; the
+    final state; the experiment)."""
     gc.collect()        # an earlier phase's tensors held by reference cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -725,7 +751,9 @@ def full_width(start, warm, nsteps, what, timings):
     torch.cuda.synchronize()
     clock, spent, last = {}, [], [exp.forcing0]
 
-    def mark(_, iic):
+    def mark(st, iic):
+        if hook is not None:
+            hook(st, iic)
         # the host clock brackets steps warm+1 .. warm+nsteps
         if iic in (warm, warm + nsteps):
             torch.cuda.synchronize()
@@ -759,6 +787,7 @@ def full_width(start, warm, nsteps, what, timings):
     check_finite(st, what)
     wall = clock[warm + nsteps] - clock[warm]
     peak = torch.cuda.max_memory_allocated() / 2**30
+    MS_PER_STEP[what] = 1e3 * wall / nsteps
     frc = ""
     if spent:
         frc_s = sum(spent[warm:warm + nsteps])
@@ -1523,6 +1552,319 @@ def phase_output(device, workdir):
     phase_exact_restart(device, workdir)
 
 
+# ------------------------------------------------------------------ phase 14
+# the step's options in two sets, each with the kernels it launches: (i)
+# the non-hydrostatic projection and the momentum budget ride on the
+# tracer kernel's path; (ii) isoneutral mixing, the tracer budget and the
+# upscale capture take the batched tracer branch (`cuda_tracer.usable`);
+# each tag names its set in bench_production.OPTIONS
+OPTION_SETS = (("i", "nh"), ("ii", "iso"))
+OUTPUTS = ("upscale", "t_budget", "uv_budget")
+PARTICLES = 1_000_000
+
+
+def compare_outputs(got, ref, what, loose):
+    """The step's optional outputs (budget terms, upscale strips: dicts of
+    numpy arrays, nested for uv_budget) of `got` against `ref`, array by
+    array, at atol bench_production.STEP_TOL * max(1, max|ref|), or at
+    `loose` (the option set's OPTION_CONDITIONED_TOL) under the array's
+    dotted name; returns (the worst error of the arrays held at STEP_TOL,
+    that of the conditioned ones, the number of arrays)."""
+    from roms_tpu_torch.cases import bench_production
+    worst, cond, n = 0.0, 0.0, 0
+    todo = [(k, got[k], ref[k]) for k in OUTPUTS if ref[k] is not None]
+    while todo:
+        name, g, r = todo.pop()
+        if isinstance(r, dict):
+            if g is None or set(g) != set(r):
+                raise AssertionError(f"{what}: {name} holds "
+                                     f"{None if g is None else sorted(g)}, "
+                                     f"expected {sorted(r)}")
+            todo += [(f"{name}.{k}", g[k], v) for k, v in r.items()]
+            continue
+        err = float(np.abs(g - r).max()) / max(1.0, float(np.abs(r).max()))
+        if not np.isfinite(g).all() or \
+                err > loose.get(name, bench_production.STEP_TOL):
+            raise AssertionError(f"{what}: {name} differs by {err:.3e} * "
+                                 f"max(1, max|ref|)")
+        if name in loose:
+            cond = max(cond, err)
+        else:
+            worst = max(worst, err)
+        n += 1
+    return worst, cond, n
+
+
+def phase_options_f64(device, nsteps=3):
+    """14a: each option set on production 48x32x16 in float64, the card
+    against the CPU, at phase 4's tolerances, with every budget term and
+    upscale strip; the arrays that are ill-conditioned under each set
+    (bench_production.OPTION_CONDITIONED_TOL[set]: the volume fluxes and
+    what is computed from them, the momentum budget's u.vmix and rate) at
+    1e-8."""
+    from roms_tpu_torch import bridge
+    from roms_tpu_torch.cases import bench_production
+    from roms_tpu_torch.driver import run
+    for tag, key in OPTION_SETS:
+        flags = bench_production.OPTIONS[key]
+        loose = bench_production.OPTION_CONDITIONED_TOL[key]
+        cfg = bench_production.config(nx=48, ny=32, nz=16, nt=4).replace(
+            **flags)
+        what = f"14a-{tag} " + "+".join(k for k in flags if k not in (
+            "sw_triads", "stabilize"))
+        out = {}
+        for where in ("cpu", device):
+            grid, st, frc = bench_production.setup(cfg, dtype=torch.float64,
+                                                   device=where)
+            reset_counts()
+            st, _ = run(grid, st, frc, cfg, nsteps=nsteps,
+                        collect_diag=False)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                counts = read_counts()
+                check_counts(counts, nsteps, cfg, what)
+            out[str(where)] = bridge.to_numpy(st)
+        on = [k for k in OUTPUTS if out["cpu"][k] is not None]
+        if not on:
+            raise AssertionError(f"{what}: the step returned no output")
+        main, text = compare_states(
+            out[str(device)], out["cpu"], what,
+            loose={k: v for k, v in loose.items() if "." not in k})
+        worst, cond, n = compare_outputs(out[str(device)], out["cpu"], what,
+                                         loose)
+        say(f"[{what}] 48x32x16 nt=4 f64, {nsteps} steps, card vs CPU: "
+            f"max err / max(1, max|ref|) {main:.3e} over the state, {text}; "
+            f"{n} arrays of {', '.join(on)} {worst:.3e}, their conditioned "
+            f"ones {cond:.3e}; launches tracer {counts[0]}, solve "
+            f"{counts[1]}, kpp {counts[2]}")
+
+
+def phase_nested(device, workdir):
+    """14b: tests/test_nested_flow.py's workflow through the port on the
+    card in float64: its checks, and its numbers against the JAX
+    package's flow (tests/data/nested_flow_jax.txt) at rtol 1e-9."""
+    from roms_tpu_torch.cases import nested_basin as nb
+    flow_dir = os.path.join(workdir, "nested")
+    os.makedirs(flow_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = nb.run_flow(flow_dir, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    # the parent's 8 and 2 steps take the tracer kernel, the child's 8
+    # (upscale capture) the batched branch; the basin has no KPP
+    expected = (2 * (nb.NSTEPS + 2), 4 * (2 * nb.NSTEPS + 2), 0)
+    if counts != expected:
+        raise AssertionError(f"14b nested: kernel launches (tracer, solve, "
+                             f"kpp) = {counts}, expected {expected}")
+    nb.check_flow(out)
+    ref = np.loadtxt(os.path.join(DATA, "nested_flow_jax.txt"))
+    got = np.concatenate([[out["dc"], out["net_flux"], out["inj"],
+                           out["pc0"], out["pc1"]], out["ub_west"]])
+    rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    if got.shape != ref.shape or not rel <= 1e-9:
+        raise AssertionError(f"14b nested: the flow's numbers differ from "
+                             f"the JAX package's by {rel:.3e} relative")
+    say(f"[14b nested] parent {nb.NP}x{nb.NP}x{nb.NZ} {nb.NSTEPS} steps, "
+        f"child {nb.NC}x{nb.NC}x{nb.NZ} dt=30 s {nb.NSTEPS} steps, parent "
+        f"re-forced 2 steps, f64, {secs:.1f} s: ub_west "
+        f"{out['ub_west'].min():.6f} to {out['ub_west'].max():.6f} (ubind "
+        f"{out['ubind']}); child content change {out['dc']:.10e}, minus "
+        f"the captured outward flux {-out['net_flux']:.10e} (rel gap "
+        f"{abs(out['dc'] + out['net_flux']) / abs(out['dc']):.3e}); parent "
+        f"gain {out['pc1'] - out['pc0']:.6e} for an injected "
+        f"{out['expect']:.6e}; UpscaleWriter file equal to the strips; "
+        f"numbers vs the JAX flow max rel {rel:.3e}; launches tracer "
+        f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}")
+
+
+def seed_wet(grid, cfg, n, device, seed=0):
+    """n particles at uniform positions in the wet interior cells, from a
+    numpy generator (index space: padded cell p holds px = p - 1)."""
+    from roms_tpu_torch.particles import seed_particles
+    h = cfg.halo
+    wet = np.argwhere(grid.rmask[h:-h, h:-h].cpu().numpy() > 0) + h
+    rng = np.random.default_rng(seed)
+    cells = wet[rng.integers(0, len(wet), n)]
+    px = cells[:, 1] - 1 + rng.uniform(-0.5, 0.5, n)
+    py = cells[:, 0] - 1 + rng.uniform(-0.5, 0.5, n)
+    pz = rng.uniform(0.0, cfg.nz, n)
+    return seed_particles(px, py, pz, dtype=torch.float32, device=device)
+
+
+def device_kernels(fn):
+    """(kernels, device ms) of one call of fn() under torch.profiler, or
+    None where the profiler sees no device kernels."""
+    from roms_tpu_torch.profile_step import _device_kernels
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    k = _device_kernels(prof)
+    n = sum(c for c, _ in k.values())
+    return (n, 1e-3 * sum(us for _, us in k.values())) if n else None
+
+
+def kernels_text(r):
+    return "not measured" if r is None else \
+        f"{r[0]} kernels, {r[1]:.3f} ms of device time"
+
+
+def phase_nh_full_width(device, workdir, warm=1, nsteps=3):
+    """14c-i: production 384x192x60 nt=34 f32 with the non-hydrostatic
+    projection and the momentum budget, a million particles advanced
+    after every step."""
+    from roms_tpu_torch import nhmg
+    from roms_tpu_torch.cases import bench_production
+    from roms_tpu_torch.particles import ParticleWriter, advance_particles
+    cfg = bench_production.config(nx=384, ny=192, nz=60, nt=34).replace(
+        **bench_production.OPTIONS["nh"])
+    what = "14c-i NH+uv_diagnostics+particles"
+    box = {"events": []}
+    base = analytic(bench_production, cfg, device)
+
+    def start():
+        exp = base()
+        box["grid"] = exp.grid
+        box["ps"] = seed_wet(exp.grid, cfg, PARTICLES, device)
+        return exp
+
+    def hook(s, iic):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        box["ps"] = advance_particles(box["ps"], s.u, s.v, s.we, s.wi, s.hz,
+                                      box["grid"], cfg)
+        e1.record()
+        box["events"].append((e0, e1))
+
+    solve = nhmg.nh_solve
+
+    def keep(*a, **k):
+        box["nh"] = solve(*a, **k)
+        return box["nh"]
+    nhmg.nh_solve = keep
+    try:
+        _, st, exp = full_width(start, warm, nsteps, what, False, hook=hook)
+    finally:
+        nhmg.nh_solve = solve
+    torch.cuda.synchronize()
+    ps, grid, nh = box["ps"], box["grid"], box["nh"]
+    adv_ms = [e0.elapsed_time(e1) for e0, e1 in box["events"][warm:]]
+    if not (bool(torch.isfinite(nh.res).item())
+            and bool(torch.isfinite(ps.px[ps.active]).all())):
+        raise AssertionError(f"{what}: NH residual or particles not finite")
+    if st.uv_budget is None:
+        raise AssertionError(f"{what}: no momentum budget")
+    t0 = time.perf_counter()
+    pw = ParticleWriter(os.path.join(workdir, "particles.nc"), PARTICLES,
+                        cfg)
+    pw.write(ps, float(st.time))
+    pw.close()
+    w_ms = 1e3 * (time.perf_counter() - t0)
+    say(f"[{what}] last step's NH res/res0 {float(nh.res / nh.res0):.3e} "
+        f"(res0 {float(nh.res0):.6e}, {cfg.nh_iters} PCG iterations); "
+        f"{PARTICLES} particles: advance {np.median(adv_ms):.3f} ms a step "
+        f"(median of the {nsteps} timed steps, CUDA events), active "
+        f"{int(ps.active.sum())}, n_bot {int(ps.n_bot)}, n_sur "
+        f"{int(ps.n_sur)}; one ParticleWriter record {w_ms:.1f} ms; "
+        f"phase 6 (no options) {MS_PER_STEP.get('6 production', 0.0):.3f} "
+        f"ms/step in this call")
+    # the projection's cost on the final state: one nh_solve, and one
+    # application of its line preconditioner (a Thomas sweep unrolled
+    # over the levels)
+    w0 = torch.zeros((cfg.nz + 1,) + tuple(st.u.shape[1:]),
+                     dtype=st.u.dtype, device=device)
+
+    def nh_call():
+        return nhmg.nh_solve(st.u, st.v, w0, st.hz, st.z_r, grid.pm,
+                             grid.pn, grid, cfg)
+    geo = nhmg._geometry(st.hz, st.z_r, grid.pm, grid.pn, grid.umask,
+                         grid.vmask, cfg)
+
+    def precond():
+        return nhmg._line_precond(st.u, geo.au, geo.av, geo.aw_int,
+                                  geo.aw_top, geo.cell)
+    nh_ms, _ = time_ms(nh_call, reps=3)
+    pc_ms, pc_host = time_ms(precond, reps=10)
+    # the same projection in float64: whether the float32 residual is the
+    # PCG's own at nh_iters iterations or float32 round-off
+    nh64 = nhmg.nh_solve(*[x.double() for x in (st.u, st.v, w0, st.hz,
+                                                 st.z_r, grid.pm, grid.pn)],
+                         promoted(grid), cfg)
+    nh32 = nh_call()
+    say(f"[{what}] one nh_solve {np.median(nh_ms):.3f} ms "
+        f"({kernels_text(device_kernels(nh_call))}), res/res0 "
+        f"{float(nh32.res / nh32.res0):.3e}, in float64 "
+        f"{float(nh64.res / nh64.res0):.3e}; one line preconditioner "
+        f"{np.median(pc_ms):.3f} ms, host {np.median(pc_host):.3f} ms "
+        f"({kernels_text(device_kernels(precond))}), applied "
+        f"{cfg.nh_iters + 1} times a projection")
+
+
+def phase_iso_full_width(device, workdir, warm=1, nsteps=3):
+    """14c-ii: production 384x192x60 nt=34 f32 with isoneutral mixing, the
+    tracer budget and the upscale capture written by an UpscaleWriter;
+    then `profile_step` of the same configuration for the batched
+    branch's layers."""
+    from roms_tpu_torch import profile_step
+    from roms_tpu_torch.cases import bench_production
+    from roms_tpu_torch.io.netcdf import open_dataset
+    from roms_tpu_torch.io.upscale import UpscaleWriter
+    cfg = bench_production.config(nx=384, ny=192, nz=60, nt=34).replace(
+        **bench_production.OPTIONS["iso"])
+    what = "14c-ii isoneutral+tracer_diagnostics+upscale"
+    path = os.path.join(workdir, "upscale.nc")
+    uw = UpscaleWriter(path, None, cfg, [("temp", 0, None),
+                                         ("salt", 1, None)])
+    times = []
+
+    def hook(s, iic):
+        t0 = time.perf_counter()
+        uw.accumulate(s)
+        times.append(1e3 * (time.perf_counter() - t0))
+    _, st, _ = full_width(analytic(bench_production, cfg, device), warm,
+                          nsteps, what, False, hook=hook)
+    uw.close()
+    if st.t_budget is None or st.upscale is None:
+        raise AssertionError(f"{what}: no tracer budget or upscale capture")
+    with open_dataset(path) as ds:
+        recs = ds["temp_add_west"].shape[0]
+        vals = [np.asarray(ds[v][...]) for v in ds.variables]
+    if recs != warm + nsteps or not all(np.isfinite(v).all() for v in vals):
+        raise AssertionError(f"{what}: the upscale file holds {recs} "
+                             f"records or values not finite")
+    say(f"[{what}] UpscaleWriter {recs} records, "
+        f"{np.median(times[warm:]):.3f} ms a step on the host (median); "
+        f"phase 6 (no options) {MS_PER_STEP.get('6 production', 0.0):.3f} "
+        f"ms/step in this call")
+    del st
+    out = profile_step.profile(cfg, device, case=bench_production,
+                               say=lambda *a: say(f"[{what}]", *a))
+    lay = out["layers_ms"]
+    batched = sum(lay.get(n, 0.0) for _, n in profile_step.BATCHED)
+    iso = lay.get("slope_fields", 0.0) + lay.get("isoneutral_increment", 0.0)
+    step = out["layer_step_ms"]
+    say(f"[{what}] profile: {out.get('kernels_per_step', 0.0):.0f} kernels "
+        f"a step, busy share {out.get('busy_share', float('nan')):.4f}; "
+        f"batched tracer branch {batched:.3f} ms ({batched / step:.4f}) and "
+        f"the isoneutral pass {iso:.3f} ms ({iso / step:.4f}: slope fields "
+        f"{lay.get('slope_fields', 0.0):.3f}, increment "
+        f"{lay.get('isoneutral_increment', 0.0):.3f}) of the "
+        f"{step:.3f}-ms bracketed step")
+
+
+def phase_options(device, workdir):
+    phase_options_f64(device)
+    phase_nested(device, workdir)
+    phase_nh_full_width(device, workdir)
+    phase_iso_full_width(device, workdir)
+
+
 def main():
     from roms_tpu_torch.ops import _build  # noqa: F401  (fails off the repo)
     t0 = time.perf_counter()
@@ -1544,6 +1886,7 @@ def main():
         ref64 = phase_bgc_f64(device, workdir)
         phase_bgc_f32(device, workdir, ref64)
         phase_output(device, workdir)
+        phase_options(device, workdir)
     # the card again, where the end of a long log still shows it
     say(f"[done] {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

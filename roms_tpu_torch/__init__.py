@@ -16,6 +16,10 @@ tides, the BGC engines (`bgc/`) and the mCDR releases (`cdr.py`), with
 the three TPU kernels of that step written by hand in CUDA for Hopper
 (`ops/cuda_tracer.py`, `ops/cuda_solve.py`, `ops/cuda_kpp.py`, sources
 under `csrc/`), and the command line (`python -m roms_tpu_torch`) with its
-output files, exact restart and host tools (`io/`, `tools/`).  Every feature the step does not carry raises
+output files, exact restart and host tools (`io/`, `tools/`); every step
+option (isoneutral mixing, the non-hydrostatic projection, the budgets,
+the upscale capture), the nested-domain workflow (`pflx.py`,
+`sponge_tune.py`, `io/upscale.py`, `cases/nested_basin.py`) and
+Lagrangian particles (`particles.py`).  Distributed stepping raises
 `NotImplementedError`.
 """

@@ -3,8 +3,8 @@ packages through plain Python and numpy.
 
 The JAX package's pytrees go in as dicts of numpy arrays, one entry per
 dataclass field (None for an absent optional field; `forcing.bry` and
-`forcing.cdr` nested dicts of the same kind, `forcing.bgc` a dict of
-fields), and come back out of the port the same way.  A configuration
+`forcing.cdr` nested dicts of the same kind, `forcing.bgc` and the
+state's `upscale` and budgets dicts of fields, nested for `uv_budget`), and come back out of the port the same way.  A configuration
 goes in as `dataclasses.asdict` of the JAX package's `ModelConfig`.  This is how the tests feed both packages
 identical inputs; nothing here imports the JAX package.
 """
@@ -52,13 +52,23 @@ def grid_from_numpy(d: dict, *, dtype: torch.dtype,
     return _from_numpy(Grid, d, dtype, device)
 
 
+def _tensor_tree(x, dtype, device):
+    """An array, or a dict of them nested to any depth, as tensors."""
+    if isinstance(x, dict):
+        return {k: _tensor_tree(v, dtype, device) for k, v in x.items()}
+    return _tensor(x, dtype, device)
+
+
 def state_from_numpy(d: dict, *, dtype: torch.dtype,
                      device: torch.device) -> OceanState:
-    for name in ("upscale", "t_budget", "uv_budget"):
-        if d.get(name) is not None:
-            raise NotImplementedError(f"state.{name} is not ported yet "
-                                      "(ROADMAP Queue 1 item 11)")
-    return _from_numpy(OceanState, d, dtype, device)
+    """The state; its optional outputs `upscale` and `t_budget` (dicts of
+    arrays) and `uv_budget` (a dict of such dicts) come along as the same
+    dicts of tensors."""
+    nested = ("upscale", "t_budget", "uv_budget")
+    st = _from_numpy(OceanState, {k: v for k, v in d.items()
+                                  if k not in nested}, dtype, device)
+    return st.replace(**{k: _tensor_tree(d[k], dtype, device)
+                         for k in nested if d.get(k) is not None})
 
 
 def cdr_from_numpy(d: dict, *, dtype: torch.dtype,

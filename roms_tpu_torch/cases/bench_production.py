@@ -51,6 +51,25 @@ HMIN, HMAX = 30.0, 4000.0
 # (tests/test_torch_production.py::test_reference_conditioning).
 STEP_TOL = 5e-11
 CONDITIONED_TOL = {"we": 1e-8, "akv": 1e-8, "akt": 1e-8}
+# The step's option sets of chip_smoke.py's phase 14: the non-hydrostatic
+# projection with the momentum budget, and isoneutral mixing with the
+# tracer budget and the upscale capture.  Under each, more arrays carry
+# that conditioning.  Each set holds at 1e-8, by name (dotted for the
+# outputs' terms), only arrays that a 1e-15 relative perturbation of the
+# tracers moves by more than STEP_TOL, with one of the noise seeds 0-3 at
+# least, both in the JAX package's own step for that set
+# (tests/jax_option_conditioning.py) and in the port's
+# (tests/test_torch_production.py::test_option_conditioning).
+OPTIONS = {"nh": dict(non_hydrostatic=True, uv_diagnostics=True),
+           "iso": dict(adv_isoneutral=True, sw_triads=True, stabilize=True,
+                       tracer_diagnostics=True, upscale_output=True)}
+OPTION_CONDITIONED_TOL = {
+    "nh": {**CONDITIONED_TOL, "flx_u": 1e-8, "flx_v": 1e-8,
+           "uv_budget.u.vmix": 1e-8, "uv_budget.u.rate": 1e-8,
+           "uv_budget.v.rate": 1e-8},
+    "iso": {**CONDITIONED_TOL, "flx_u": 1e-8, "flx_v": 1e-8,
+            "t_budget.hadv": 1e-8, "t_budget.vadv": 1e-8,
+            "upscale.west": 1e-8, "upscale.south": 1e-8}}
 
 
 def config(nx: int = 512, ny: int = 256, nz: int = 60,

@@ -25,8 +25,10 @@ the step in three windows of one run, after 2 warm-up steps:
           configuration (river sources), the batched tracer branch's
           functions (horizontal and vertical fluxes, the river flux fix,
           the implicit solve, t3dmix) too, a real-data case's
-          `forcing_fn`, and a BGC case's column physics
-          (`stepper.bgc_update`).  The brackets take away the
+          `forcing_fn`, a BGC case's column physics
+          (`stepper.bgc_update`), and where the configuration turns them
+          on, the non-hydrostatic projection (`nhmg.nh_solve`) and the
+          isoneutral slope fields and increment.  The brackets take away the
           overlap of host and device, so these steps are slower than the
           wall windows; the shares are what the layers weigh;
   bgc     in a BGC case, one call of `stepper.bgc_update` on the last
@@ -47,15 +49,15 @@ from collections import defaultdict
 
 import torch
 
-from roms_tpu_torch import stepper
+from roms_tpu_torch import nhmg, stepper
 from roms_tpu_torch.cases import (bench_production, bgc_real, cdr_3d,
                                   filament, flux_frc, pipes_real,
                                   rivers_real)
 from roms_tpu_torch.driver import _call_forcing_fn, run
 from roms_tpu_torch.ops import advection as adv
 from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
-                                cuda_tracer, eos, hmix, kinematics, prsgrd,
-                                rivers, vmix)
+                                cuda_tracer, eos, hmix, isoneutral,
+                                kinematics, prsgrd, rivers, vmix)
 
 WARM, WALL_WINDOWS, WALL_STEPS, PROF_STEPS, LAYER_STEPS = 2, 3, 5, 2, 2
 TOP = 12    # kernels listed by name
@@ -75,6 +77,10 @@ LAYERS = (
 BATCHED = ((adv, "horiz_tracer_flux"), (adv, "vert_tracer_flux_spline"),
            (vmix, "tracer_implicit_all"), (rivers, "tracer_flux_fix_all"),
            (hmix, "t3dmix"))
+# the layers of an option, bracketed where the configuration turns it on
+OPTIONS = (("non_hydrostatic", ((nhmg, "nh_solve"),)),
+           ("adv_isoneutral", ((isoneutral, "slope_fields"),
+                               (isoneutral, "isoneutral_increment"))))
 # the real-data cases take their configuration from their input files
 CASES = {
     "filament": (filament, filament.config().replace(nx=512, ny=256, nz=60)),
@@ -147,6 +153,9 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
     layers = LAYERS if cuda_tracer.usable(cfg) else LAYERS + BATCHED
     if cfg.bgc_model != "none":
         layers = layers + ((stepper, "bgc_update"),)
+    for flag, extra in OPTIONS:
+        if getattr(cfg, flag):
+            layers = layers + extra
     marks, spent, out = {}, defaultdict(float), {}
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":

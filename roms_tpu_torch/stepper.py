@@ -13,15 +13,22 @@ stencil.  That one gate decides the tracer path: never the device, the
 dtype or a build.  Each wrapper launches its CUDA kernel on the card and
 runs its plain version on the CPU.  Point loads (pipes, mCDR releases)
 enter both tracer paths; the BGC column physics (`bgc_update`) follows
-the corrector's boundary conditions.  Every feature the port does not
-carry yet raises NotImplementedError before any work is done.
+the corrector's boundary conditions.
+
+The rotated (isoneutral) biharmonic, the upscale capture and the tracer
+budget live on the batched branch only, as `cuda_tracer.usable` says.
+The momentum budget and the non-hydrostatic projection (`nhmg.nh_solve`,
+with the JAX package's zero trial w, its nh.w discarded) ride on both
+tracer paths.  The optional outputs come back on the state: `upscale`
+(outward boundary tracer fluxes per open edge), `t_budget` and
+`uv_budget` (Hz-weighted per-step terms), each None when its flag is off.
 """
 
 from __future__ import annotations
 
 import torch
 
-from roms_tpu_torch import vcoord
+from roms_tpu_torch import nhmg, vcoord
 from roms_tpu_torch.bgc import bec
 from roms_tpu_torch.bgc.api import BGCContext, get_model
 from roms_tpu_torch.cdr import apply_cdr_all
@@ -29,8 +36,8 @@ from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.grid import Grid
 from roms_tpu_torch.ops import advection as adv
 from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
-                                cuda_tracer, eos, hmix, kinematics, rivers,
-                                vmix)
+                                cuda_tracer, eos, hmix, isoneutral,
+                                kinematics, rivers, vmix)
 from roms_tpu_torch.ops import prsgrd as prsgrd_mod
 from roms_tpu_torch.ops.kinematics import hz_u, hz_v
 from roms_tpu_torch.parallel.halo import make_halo_fill, shift
@@ -40,15 +47,9 @@ AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
 
 
 def _unsupported(cfg: ModelConfig):
-    """Names of the enabled features the port does not carry yet."""
-    checks = (
-        ("adv_isoneutral", cfg.adv_isoneutral),
-        ("non_hydrostatic", cfg.non_hydrostatic),
-        ("tracer_diagnostics", cfg.tracer_diagnostics),
-        ("uv_diagnostics", cfg.uv_diagnostics),
-        ("upscale_output", cfg.upscale_output),
-    )
-    return [name for name, on in checks if on]
+    """Names of the enabled step features the port does not carry: none,
+    since every flag of the JAX package's step is ported."""
+    return []
 
 
 def _tracer_divergence(fx, fe, pmn):
@@ -87,11 +88,16 @@ def _kpp_sources(state: OceanState, forcing: Forcing, ghat, wi,
     return src_t, src_s
 
 
-def _uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig, scheme):
+def _uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig, scheme,
+            parts: bool = False):
     """Coriolis + horizontal + vertical momentum advection r.h.s.
-    (reference: compute_horiz_rhs_uv_terms.h + compute_vert_rhs_uv_terms.h)."""
+    (reference: compute_horiz_rhs_uv_terms.h + compute_vert_rhs_uv_terms.h).
+
+    With parts=True also returns the Coriolis part (cori_u, cori_v) for
+    the momentum budget (reference: diagnostics.F icori/iadv)."""
     ru = torch.zeros_like(u)
     rv = torch.zeros_like(v)
+    rc_u = rc_v = None
     if cfg.uv_cor or (cfg.curvgrid and cfg.uv_adv):
         rc_u, rc_v = adv.coriolis_rhs(u, v, hz, grid, cfg)
         ru = ru + rc_u
@@ -103,6 +109,9 @@ def _uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig, scheme):
         rv = rv + ra_v
         ru = ru + adv.vert_uv_rhs_spline(u, hz, we, grid.umask, grid, cfg, "u")
         rv = rv + adv.vert_uv_rhs_spline(v, hz, we, grid.vmask, grid, cfg, "v")
+    if parts:
+        return (ru, rv, torch.zeros_like(u) if rc_u is None else rc_u,
+                torch.zeros_like(v) if rc_v is None else rc_v)
     return ru, rv
 
 
@@ -258,8 +267,13 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
 
     # step3d_uv1: corrector r.h.s. + implicit vertical solve
     # (step3d_uv1.F:123-297, IMPLICIT_BOTTOM_DRAG branch)
-    ru, rv = _uv_rhs(u_half, v_half, flx_u_h, flx_v_h, hz_n, we, grid, cfg,
-                     cfg.uv_corr_scheme)
+    if cfg.uv_diagnostics:
+        ru, rv, cori_u, cori_v = _uv_rhs(u_half, v_half, flx_u_h, flx_v_h,
+                                         hz_n, we, grid, cfg,
+                                         cfg.uv_corr_scheme, parts=True)
+    else:
+        ru, rv = _uv_rhs(u_half, v_half, flx_u_h, flx_v_h, hz_n, we, grid,
+                         cfg, cfg.uv_corr_scheme)
     ru = ru_p + ru
     rv = rv_p + rv
 
@@ -283,6 +297,23 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         bottom_drag_coeff=rd_v)
     hzu_new = vel_u * hzu_n
     hzv_new = vel_v * hzv_n
+    uv_budget = None
+    if cfg.uv_diagnostics:
+        # Hz-weighted per-step terms (reference: diagnostics.F Udiag/Vdiag
+        # indices :56-63).  vmix comes straight from the implicit solve:
+        # it returns vel from rhs = Hz*u(n) + dc0*ru, so Hz*vel - rhs is
+        # the implicit viscosity, implicit-W advection, bottom drag and
+        # surface stress together.
+        uv_budget = {
+            "u": {"pgr": dc0_u_c[None] * ru_p,
+                  "cori": dc0_u_c[None] * cori_u,
+                  "adv": dc0_u_c[None] * (ru - ru_p - cori_u),
+                  "vmix": hzu_new - (hzu_n * state.u + dc0_u_c[None] * ru)},
+            "v": {"pgr": dc0_v_c[None] * rv_p,
+                  "cori": dc0_v_c[None] * cori_v,
+                  "adv": dc0_v_c[None] * (rv - rv_p - cori_v),
+                  "vmix": hzv_new - (hzv_n * state.v + dc0_v_c[None] * rv)},
+        }
     # 3D -> 2D forcing integrals (step3d_uv1.F:194-205, :269-279)
     rufrc = torch.sum(ru, dim=0) + grid.dm_u * grid.dn_u * (
         forcing.sustr - rd_u * vel_u[0])
@@ -299,6 +330,12 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         hzv_new = hzv_new + cfg.dt * dv_v
         rufrc = rufrc + dru
         rvfrc = rvfrc + drv
+        if uv_budget is not None:
+            uv_budget["u"]["hmix"] = cfg.dt * du_v
+            uv_budget["v"]["hmix"] = cfg.dt * dv_v
+    if uv_budget is not None and "hmix" not in uv_budget["u"]:
+        uv_budget["u"]["hmix"] = torch.zeros_like(hzu_new)
+        uv_budget["v"]["hmix"] = torch.zeros_like(hzv_new)
 
     # ================= BAROTROPIC SUB-CYCLE (step2d_FB.F) ================
     fast = barotropic.fast_loop(
@@ -363,6 +400,29 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         u_new, v_new = rivers.overwrite_uv(u_new, v_new, forcing, zw_new,
                                            grid)
 
+    # non-hydrostatic pressure projection of the corrected horizontal
+    # velocities (reference: the NHMG coupling of step3d_uv2).  As in the
+    # JAX package (roms_tpu/stepper.py:435-451), the trial w is zero and
+    # nh.w is discarded: w stays diagnostic, so the projection acts as a
+    # horizontal-divergence damping (roms_tpu_torch/nhmg.py docstring).
+    if cfg.non_hydrostatic:
+        w0 = torch.zeros((cfg.nz + 1,) + tuple(u_new.shape[1:]),
+                         dtype=u_new.dtype, device=u_new.device)
+        nh = nhmg.nh_solve(u_new, v_new, w0, hz_new, zr_new, grid.pm,
+                           grid.pn, grid, cfg)
+        u_new, v_new = nh.u, nh.v
+
+    if uv_budget is not None:
+        # rate and the 2D/3D coupling + BC correction, against the
+        # post-coupling state (reference: diagnostics.F icoup)
+        for hz_nn, hz_0, vel0, velf, b in (
+                (hzu_nn, hzu_n, state.u, u_new, uv_budget["u"]),
+                (hzv_nn, hzv_n, state.v, v_new, uv_budget["v"])):
+            rate = hz_nn * velf - hz_0 * vel0
+            b["rate"] = rate
+            b["coup"] = rate - (b["pgr"] + b["cori"] + b["adv"]
+                                + b["hmix"] + b["vmix"])
+
     u_new, v_new = halo(u_new), halo(v_new)
     flx_u_c, flx_v_c = halo(flx_u_c), halo(flx_v_c)
     ubar_new, vbar_new = halo(ubar_new), halo(vbar_new)
@@ -372,11 +432,20 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
                           grid, cfg.dt, cfg, forcing)
     we, wi = halo(om.we), halo(om.wi)
 
+    iso = None
+    if cfg.adv_isoneutral:
+        # slope and coefficient fields of the rotated biharmonic
+        # (reference: prsgrd.F:306-336, step3d_uv2.F:571-683)
+        iso = isoneutral.slope_fields(
+            eos_h.rho, eos_h.rho1, eos_h.qp1, zr_new, zw_new, hz_new,
+            hbls, hbbl, u_new, v_new, grid, cfg)
+
     mix = tracer_mix(grid, cfg, t_half)
     src_t = src_s = None
     if cfg.lmd_kpp:
         src_t, src_s = _kpp_sources(state, forcing, ghat, wi, cfg)
     pipe = _pipe_load(forcing, pmn, cfg) if cfg.pipe_source else None
+    upscale = t_budget = None
 
     if use_kernel:
         # the stage's base content is hz_n * t_sec_c: the pipe and mCDR
@@ -410,9 +479,28 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         if cfg.river_source:
             fx, fe = rivers.tracer_flux_fix_all(fx, fe, hz_new, zw_new,
                                                 forcing, grid)
-        t_rhs = hz_n * state.t - cfg.dt * _tracer_divergence(fx, fe, pmn)
+        if cfg.upscale_output:
+            # outward advective flux at the open-boundary faces, at the
+            # full local edge length with the halo (the writer trims)
+            # (reference: upscale_output.F:232-313 calc_forcing_rates)
+            upscale = {}
+            if cfg.obc_west:
+                upscale["west"] = -fx[:, :, :, 2]
+            if cfg.obc_east:
+                upscale["east"] = fx[:, :, :, -2 - cfg.pad_e].clone()
+            if cfg.obc_south:
+                upscale["south"] = -fe[:, :, 2, :]
+            if cfg.obc_north:
+                upscale["north"] = fe[:, :, -2 - cfg.pad_n, :].clone()
+        t_base = hz_n * state.t
+        term_hadv = -cfg.dt * _tracer_divergence(fx, fe, pmn)
+        del fx, fe
         fc = adv.vert_tracer_flux_spline(t_half, hz_new, we)
-        t_rhs = t_rhs - cfg.dt * pmn[None] * (fc[:, 1:] - fc[:, :-1])
+        term_vadv = -cfg.dt * pmn[None] * (fc[:, 1:] - fc[:, :-1])
+        del fc
+        t_rhs = t_base + term_hadv + term_vadv
+        if not cfg.tracer_diagnostics:
+            del t_base, term_hadv, term_vadv     # only the budget reads them
         if pipe is not None:
             t_rhs = t_rhs + pipe
         if forcing.cdr is not None:
@@ -423,9 +511,29 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
             t_rhs[cfg.itemp] += src_t
             if src_s is not None:
                 t_rhs[cfg.isalt] += src_s
+        akt_b = vmix.gather_akt(akt, cfg)
+        if iso is not None:
+            # rotated biharmonic increment of every tracer in one batched
+            # pass, and the STABILIZE diffusivity, which depends on the
+            # slope fields alone (reference: step3d_t_ISO.F:255-825,
+            # implicit part :1050-1064)
+            incr, akz = isoneutral.isoneutral_increment(
+                state.t, iso, hz_new, zr_new, grid, cfg, halo)
+            t_rhs = t_rhs + incr
+            del incr
+            if akz is not None:
+                akt_b[:, 1:cfg.nz] += akz
         t_new = vmix.tracer_implicit_all(
-            t_rhs, hz_new, vmix.gather_akt(akt, cfg), wi, pmn, cfg.dt,
-            grid.rmask, cfg, apply_mask=True)
+            t_rhs, hz_new, akt_b, wi, pmn, cfg.dt, grid.rmask, cfg,
+            apply_mask=True)
+        if cfg.tracer_diagnostics:
+            # term-by-term budget (reference: src/diagnostics.F TXadv/
+            # TVadv/TForc explicit); vmix = hz*t_new - t_rhs is the
+            # implicit solve's part, t_rhs the content before it
+            t_budget = {"hadv": term_hadv, "vadv": term_vadv,
+                        "forc": t_rhs - t_base - term_hadv - term_vadv,
+                        "vmix": hz_new * t_new - t_rhs,
+                        "rate": hz_new * t_new - t_base}
         if mix is not None:
             # t3dmix from t_half (reference: src/t3dmix_S.F)
             t_new = hmix.t3dmix(t_new, t_half, hz_new, grid, cfg,
@@ -433,7 +541,9 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     return _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half,
                            v_half, zeta_new, ubar_new, vbar_new, u_new,
                            v_new, flx_u_c, flx_v_c, we, wi, hz_new, zr_new,
-                           zw_new, akv, akt, hbls, hbbl, fast)
+                           zw_new, akv, akt, hbls, hbbl, fast,
+                           upscale=upscale, t_budget=t_budget,
+                           uv_budget=uv_budget)
 
 
 def tracer_mix(grid, cfg: ModelConfig, like):
@@ -452,7 +562,8 @@ def tracer_mix(grid, cfg: ModelConfig, like):
 def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
                     zeta_new, ubar_new, vbar_new, u_new, v_new, flx_u_c,
                     flx_v_c, we, wi, hz_new, zr_new, zw_new,
-                    akv, akt, hbls, hbbl, fast):
+                    akv, akt, hbls, hbbl, fast, upscale=None, t_budget=None,
+                    uv_budget=None):
     """Post-corrector tail: tracer BCs -> BGC column physics -> halo
     refresh -> final EOS -> state assembly (reference: main.F:469-490).
     The t3dmix tendency is already in t_new."""
@@ -467,7 +578,7 @@ def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
     eos_new = eos.rho_eos(t_new, zr_new, zw_new, hz_new, grid.rmask, cfg)
 
     return state.replace(
-        upscale=None, t_budget=None, uv_budget=None,
+        upscale=upscale, t_budget=t_budget, uv_budget=uv_budget,
         zeta=zeta_new, ubar=ubar_new, vbar=vbar_new,
         u=u_new, v=v_new, u_prev=state.u, v_prev=state.v,
         t=t_new, t_prev=state.t,

@@ -311,15 +311,17 @@ def test_real_data_path_imports_no_jax():
         "from roms_tpu_torch import sponge, driver, monitor, grid\n"
         "from roms_tpu_torch import __main__\n"
         "from roms_tpu_torch.io import (async_io, input, netcdf, output,\n"
-        "                               bgc_io, zslice, extract)\n"
+        "                               bgc_io, zslice, extract, upscale)\n"
         "from roms_tpu_torch.tools import grid_gen, nc3to4z, nesting, sample\n"
-        "from roms_tpu_torch.ops import rivers, bulk\n"
+        "from roms_tpu_torch.ops import rivers, bulk, isoneutral, wvlcty\n"
         "from roms_tpu_torch import bridge, cdr, remap, stepper, tides\n"
+        "from roms_tpu_torch import nhmg, particles, pflx, sponge_tune\n"
         "from roms_tpu_torch.bgc import api, bec, carbonate, npzd\n"
         "from roms_tpu_torch.cases import (flux_frc, pipes_ana, pipes_real,\n"
         "                                  rivers_ana, rivers_real, uswc,\n"
         "                                  bgc_real, cdr_real, cdr_3d,\n"
-        "                                  cdr_dp, cdr_parameterized)\n"
+        "                                  cdr_dp, cdr_parameterized,\n"
+        "                                  nested_basin)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'roms_tpu', 'h5py')]\n"
         "assert not bad, bad\n"

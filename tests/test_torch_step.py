@@ -17,7 +17,12 @@
     of a BGC configuration) and puts the layers back; chip_smoke.py fails
     with no CUDA device;
 (f) a case setup builds on the card by default, and raises on a host
-    without one rather than falling back to the CPU.
+    without one rather than falling back to the CPU;
+(g) a step with each of the five options that earlier slices refused
+    (adv_isoneutral, non_hydrostatic, tracer_diagnostics, uv_diagnostics,
+    upscale_output) runs, and `stepper._unsupported` names none of them;
+    the bridge carries a state with the budget and upscale dicts, nested
+    for uv_budget, both ways.
 """
 
 import dataclasses
@@ -221,6 +226,23 @@ def test_profile_step_reads_the_bgc_block():
     assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
 
 
+def test_profile_step_reads_the_option_layers():
+    """The non-hydrostatic projection and the isoneutral slope fields and
+    increment are read as layers where the configuration turns them on,
+    beside the batched tracer branch that isoneutral mixing takes."""
+    cfg = tbp.config(nx=10, ny=8, nz=4, nt=3).replace(
+        non_hydrostatic=True, nh_iters=4, adv_isoneutral=True)
+    before = [getattr(m, n) for _, extra in profile_step.OPTIONS
+              for m, n in extra]
+    out = profile_step.profile(cfg, torch.device("cpu"), dtype=F64,
+                               say=lambda *a: None, case=tbp)
+    assert [getattr(m, n) for _, extra in profile_step.OPTIONS
+            for m, n in extra] == before
+    assert {"nh_solve", "slope_fields", "isoneutral_increment",
+            "tracer_implicit_all"} <= set(out["layers_ms"])
+    assert "tracer_stage" not in out["layers_ms"]
+
+
 def test_chip_smoke_fails_without_cuda():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
@@ -241,3 +263,46 @@ def test_setup_defaults_to_the_card(case, monkeypatch):
     cfg = case.config()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         case.setup(cfg)
+
+
+FLAGS = ("adv_isoneutral", "non_hydrostatic", "tracer_diagnostics",
+         "uv_diagnostics", "upscale_output")
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+def test_step_takes_every_option(flag):
+    cfg = tbasin.config("radiating").replace(nx=12, ny=10, nz=4, ndtfast=6,
+                                             nh_iters=5, **{flag: True})
+    assert stepper._unsupported(cfg) == []
+    grid, st, frc = tbasin.setup(cfg, device="cpu")
+    st, _ = run(grid, st, frc, cfg, nsteps=1, collect_diag=False)
+    assert bool(torch.isfinite(st.u).all())
+    out = {"tracer_diagnostics": st.t_budget, "uv_diagnostics": st.uv_budget,
+           "upscale_output": st.upscale}
+    if flag in out:
+        assert out[flag] is not None
+    else:
+        assert st.t_budget is None and st.uv_budget is None \
+            and st.upscale is None
+
+
+def test_bridge_carries_budgets_and_upscale():
+    cfg = tbasin.config("radiating").replace(
+        nx=12, ny=10, nz=4, ndtfast=6, tracer_diagnostics=True,
+        uv_diagnostics=True, upscale_output=True)
+    grid, st, frc = tbasin.setup(cfg, device="cpu")
+    st, _ = run(grid, st, frc, cfg, nsteps=1, collect_diag=False)
+    d = bridge.to_numpy(st)
+    assert set(d["uv_budget"]) == {"u", "v"}
+    back = bridge.state_from_numpy(d, dtype=F64, device="cpu")
+    assert isinstance(back.uv_budget["u"]["vmix"], torch.Tensor)
+    again = bridge.to_numpy(back)
+    for name in ("upscale", "t_budget", "uv_budget"):
+        ref, got = d[name], again[name]
+        pairs = [(k, got[k], v) for k, v in ref.items()]
+        while pairs:
+            k, g, r = pairs.pop()
+            if isinstance(r, dict):
+                pairs += [(f"{k} {kk}", g[kk], vv) for kk, vv in r.items()]
+            else:
+                np.testing.assert_array_equal(g, r, err_msg=f"{name} {k}")

@@ -32,9 +32,14 @@ def jax_cfg(tcfg):
                            for k, v in dataclasses.asdict(tcfg).items()})
 
 
+def _np_dict(d):
+    return {k: _np_dict(v) if isinstance(v, dict) else np.asarray(v)
+            for k, v in d.items()}
+
+
 def np_tree(x):
     """A JAX pytree dataclass as the dict of numpy arrays the bridge
-    takes (a nested dataclass becomes a nested dict)."""
+    takes (a nested dataclass or dict becomes a nested dict)."""
     out = {}
     for f in dataclasses.fields(x):
         a = getattr(x, f.name)
@@ -43,7 +48,7 @@ def np_tree(x):
         elif dataclasses.is_dataclass(a):
             out[f.name] = np_tree(a)
         elif isinstance(a, dict):
-            out[f.name] = {k: np.asarray(v) for k, v in a.items()}
+            out[f.name] = _np_dict(a)
         else:
             out[f.name] = np.asarray(a)
     return out
@@ -93,15 +98,26 @@ def run_port(cfg, grid, state, forcing, nsteps=3):
     return bridge.to_numpy(tst)
 
 
+def assert_tree_close(got, ref, tol, what=""):
+    """An array, or dicts of them nested to any depth (the same keys on
+    both sides), at atol tol * max(1, max|ref|) array by array."""
+    if isinstance(ref, dict):
+        assert set(got) == set(ref), what
+        for k, a in ref.items():
+            assert_tree_close(got[k], a, tol, f"{what} {k}")
+        return
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol * scale,
+                               err_msg=what)
+
+
 def assert_state_close(got, ref_state, tol, loose=None):
     """Every field of the reference state at atol tol * max(1, max|ref|),
-    or at loose[name] instead of tol."""
+    or at loose[name] instead of tol; the dict fields (upscale capture,
+    budgets) term by term."""
     loose = loose or {}
     for name, a in np_fields(ref_state).items():
-        scale = max(1.0, float(np.abs(a).max()))
-        np.testing.assert_allclose(got[name], a, rtol=0,
-                                   atol=loose.get(name, tol) * scale,
-                                   err_msg=name)
+        assert_tree_close(got[name], a, loose.get(name, tol), name)
 
 
 # global attributes that name the package or the commit that wrote a file
