@@ -6,7 +6,8 @@
 Builds the port's three CUDA kernels from the sources in this checkout
 and drives its main paths through `roms_tpu_torch.driver.run` (the
 real-data cases through `Experiment.run`, the command line through
-`roms_tpu_torch.__main__.main`), in phases;
+`roms_tpu_torch.__main__.main`, the rank mesh through
+`driver.run_distributed` and `Experiment.run_distributed`), in phases;
 each prints its own lines and the first failure raises, so the exit code
 is nonzero (the whole script takes about 8 minutes on an H100):
 
@@ -23,9 +24,10 @@ is nonzero (the whole script takes about 8 minutes on an H100):
      (rtol = atol = 1e-12) and float32 (rtol 1e-5, atol 1e-5*max|ref|);
      the tracer cases cover all three schemes in both stages, 34 tracers
      at nz=60, the kernel's largest nz, and planes that are not whole
-     tiles; the solve and KPP cases cover nz=60, each kernel's largest
-     nz and ragged planes, and KPP also partial edge ownership and a grid
-     periodic in i only.
+     tiles, and partial edge ownership in both stages as a mesh block
+     has it (west and north owned, and east and south); the solve and KPP
+     cases cover nz=60, each kernel's largest nz and ragged planes, and
+     KPP also partial edge ownership and a grid periodic in i only.
   3. oracle: 20 Filament steps at 64x64x32 in float64 against
      tests/data/filament_oracle.txt, tracer and solve kernels launched.
   4. production in float64: bench_production at 48x32x16, nt=4, 3 steps
@@ -118,13 +120,38 @@ is nonzero (the whole script takes about 8 minutes on an H100):
      preconditioner's ms and kernels; the second with an UpscaleWriter
      after every step, then `profile_step` for the batched tracer branch
      and the isoneutral pass; ms/step beside phase 6's and peak memory.
+ 15. the rank mesh on this card (`parallel.dist.launch` spawns the ranks;
+     NCCL refuses two ranks of one communicator on one GPU, so the 2x2
+     mesh runs gloo ranks on cuda:0, their halo strips staged through
+     pinned host memory): (a) NCCL, a world of one: production 48x32x16
+     nt=4 f64, 3 steps through `driver.run_distributed` on the 1x1 mesh,
+     every field and row bitwise equal to `driver.run` on the card,
+     launches as phase 4; (b) 2x2 gloo ranks: the same case without
+     options, with the budgets and the upscale capture, at 49x33 (padded
+     onto the mesh), and with mCDR point releases and a 3-argument bulk
+     forcing hook (the releases made block-local, the hook reading the
+     gathered surface view), 3 steps each against the single block on
+     the card (the fields tests/test_distributed.py compares and every
+     other array at 1e-12 * max(1, max|ref|), the conditioned arrays and
+     the strips at 1e-8, the tracer budget's terms at 1e-8 of their own
+     largest value, as tests/test_torch_dist.py), the last diag row
+     bitwise `compute_diag`'s of the gathered state, every rank's
+     launches; the distributed particle step bitwise `advance_particles`;
+     (c) Flux_frc in f64 through `Experiment.run_distributed`, 20 steps
+     against its oracle and mass oracle (phase 9's tolerances); (d)
+     production 384x192x60 nt=34 f32 on 2x2 ranks, 1 warm-up + 3 timed
+     steps, finite: ms/step of the slowest rank, each rank's peak memory
+     and the host ms of one 3D and one 2D exchange (four ranks sharing
+     one card: not a scaling number).
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
-before it and reads them just after (phase 12's profile excepted: it
-reads the device's kernels), and holds them to what the
+before it and reads them just after, in phase 15 on every rank (phase
+12's profile excepted: it reads the device's kernels), and holds them to
+what the
 configuration's gates select: the tracer kernel twice a step where
 `cuda_tracer.usable` admits the configuration (not for river sources),
-the solve four times, KPP twice under lmd_kpp.  The line before the last
+the solve four times, KPP twice where `cuda_kpp.usable` admits the
+configuration (KPP without a mesh block's pad).  The line before the last
 is a JSON object {"kernels": [...]} whose launches and times come from
 phase 6; the last line is {"ok": true, "device": {...}}.  Imports the
 port, torch and numpy: nothing of JAX and nothing of the JAX package.
@@ -265,7 +292,8 @@ def tracer_case(name, dtype, device):
                 x["hz_d"], x["we"], x["wi"], x["akt"], x["pmn"], x["rmask"],
                 x["umask"], x["vmask"], cfg, scheme, 50.0,
                 0.5 + 1.0 / 6.0, 0.5 - 1.0 / 6.0, False, "pred")
-        return cfg, args, {}
+        return cfg, args, ({"own": TRACER_OWN[name]} if name in TRACER_OWN
+                           else {})
     args = (x["tk"], x["t_sec"], x["flx_u"], x["flx_v"], x["hz_n"],
             x["hz_new"], x["we"], x["wi"], x["akt"], x["pmn"], x["rmask"],
             x["umask"], x["vmask"], cfg, scheme, 60.0, 0.0, 1.0, True,
@@ -274,6 +302,8 @@ def tracer_case(name, dtype, device):
     if name in ("corr_mix", "corr_nt34_nz60", "corr_nz_max",
                 "corr_mix_ragged"):
         kw["mix"] = {k: x[k] for k in ("diff2", "pmon_u", "pnom_v")}
+    if name in TRACER_OWN:
+        kw["own"] = TRACER_OWN[name]
     return cfg, args, kw
 
 
@@ -307,10 +337,16 @@ def kpp_case(name, first_step, dtype, device):
                  x["z_w"], x["hz"], forcing, grid, cfg, first_step)
 
 
+# a mesh block's edge ownership (own_w, own_e, own_s, own_n): the edge
+# fixes on the west and north edges only, and on the east and south only
+TRACER_OWN = {"pred_own_wn": (True, False, False, True),
+              "corr_own_wn": (True, False, False, True),
+              "pred_own_es": (False, True, True, False),
+              "corr_own_es": (False, True, True, False)}
 TRACER_CASES = ("corr_upstream3", "corr_centered4", "corr_akima",
                 "pred_nonperiodic", "pred_periodic", "corr_ragged",
                 "corr_mix", "pred_upstream3", "pred_akima", "corr_nt34_nz60",
-                "corr_nz_max", "corr_mix_ragged")
+                "corr_nz_max", "corr_mix_ragged", *TRACER_OWN)
 SOLVE_CASES = (("drag", {}), ("no_drag", {}), ("drag_ragged", RAGGED),
                ("drag_nz60", dict(nz=60)),
                ("drag_nz_max", None))     # the kernel's deepest column
@@ -407,10 +443,11 @@ def read_counts():
 def check_counts(counts, nsteps, cfg, what):
     """Launches the configuration's gates select: the tracer kernel twice
     a step where `cuda_tracer.usable` admits the configuration (none for
-    river sources), the solve four times, KPP twice under lmd_kpp."""
-    from roms_tpu_torch.ops import cuda_tracer
+    river sources), the solve four times, KPP twice where
+    `cuda_kpp.usable` admits it (KPP without a mesh-divisibility pad)."""
+    from roms_tpu_torch.ops import cuda_kpp, cuda_tracer
     expected = (2 * nsteps if cuda_tracer.usable(cfg) else 0, 4 * nsteps,
-                2 * nsteps if cfg.lmd_kpp else 0)
+                2 * nsteps if cuda_kpp.usable(cfg) else 0)
     if counts != expected:
         raise AssertionError(f"{what}: kernel launches (tracer, solve, kpp) "
                              f"= {counts}, expected {expected}")
@@ -1865,6 +1902,445 @@ def phase_options(device, workdir):
     phase_iso_full_width(device, workdir)
 
 
+# ------------------------------------------------------------------ phase 15
+# Phase 15 drives `driver.run_distributed` and `Experiment.run_distributed`
+# on rank meshes on this one card: NCCL refuses two ranks of one
+# communicator on one GPU, so NCCL runs a world of one (15a) and the 2x2
+# mesh runs four gloo ranks on cuda:0, their halo strips staged through
+# pinned host memory (15b-15d).  The ranks are spawned processes
+# (`parallel.dist.launch`); each reads its own kernels' launch counts and
+# returns its numbers, which this process prints and checks.
+MESH_CASE = dict(nx=48, ny=32, nz=16, nt=4)
+MESH_OPTIONS = dict(tracer_diagnostics=True, uv_diagnostics=True,
+                    upscale_output=True)
+MESH_MAIN = ("zeta", "ubar", "vbar", "u", "v", "t", "hz")
+MESH_TOL = 1e-12
+# the tracer budget's terms against their own largest value: the JAX
+# package's own mesh run reaches 1.7e-9 there (vmix, tests/jax_dist_nh.py)
+MESH_BUDGET_TOL = 1e-8
+# 15b's cases: (tag, nx, ny, flags); "cdr_bulk" adds mCDR point releases
+# and a 3-argument bulk-forcing hook (`production_forced`)
+MESH_TAGS = (("plain", 48, 32, {}), ("options", 48, 32, MESH_OPTIONS),
+             ("49x33", 49, 33, {}), ("cdr_bulk", 48, 32, {}))
+# padded-global (j, i) release cells on 48x32, whose 2x2 blocks hold
+# interior rows 2..17 | 18..33 and columns 2..25 | 26..49: inside each
+# block, on both sides of the block boundaries and at their corner, two in
+# one cell, by the physical edges (the east is land); all wet
+MESH_RELEASES = ((5, 7), (9, 40), (30, 12), (27, 44), (17, 25), (18, 26),
+                 (17, 26), (18, 25), (18, 26), (2, 2), (33, 2), (2, 40),
+                 (33, 40))
+# 15d's case: phase 6's
+MESH_FULL = dict(nx=384, ny=192, nz=60, nt=34)
+
+
+def flat_tree(d, pre=""):
+    """A state dict of numpy arrays with its nested dicts flattened to
+    dotted names (budget terms, strips); None left out."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{pre}{k}."))
+        elif v is not None:
+            out[pre + k] = np.asarray(v)
+    return out
+
+
+def mesh_compare(got, ref, what):
+    """A 2x2 run's gathered state against the single block's on the card:
+    the fields tests/test_distributed.py compares and every other array at
+    MESH_TOL * max(1, max|ref|) over the interior; the arrays
+    bench_production.CONDITIONED_TOL or OPTION_CONDITIONED_TOL names and
+    the boundary strips (face volume fluxes times a tracer) at 1e-8; the
+    momentum terms on the reference's update range; the tracer budget's
+    terms at MESH_BUDGET_TOL of their own largest value, as
+    tests/test_torch_dist.py:_compare.  Returns {name: error}."""
+    from roms_tpu_torch.cases import bench_production
+    loose = set(bench_production.CONDITIONED_TOL).union(
+        *bench_production.OPTION_CONDITIONED_TOL.values())
+    h = 2
+    errs = {}
+    for name, a in ref.items():
+        if a.ndim < 2 and not name.startswith("upscale."):
+            if not np.array_equal(got[name], a):
+                raise AssertionError(f"{what}: {name} differs")
+            continue
+        sl = ((Ellipsis, slice(h, -h)) if name.startswith("upscale.") else
+              (Ellipsis, slice(h, -h), slice(h + 1, -h))
+              if name.startswith("uv_budget.u.") else
+              (Ellipsis, slice(h + 1, -h), slice(h, -h))
+              if name.startswith("uv_budget.v.") else
+              (Ellipsis, slice(h, -h), slice(h, -h)))
+        a, b = a[sl], got[name][sl]
+        if name.startswith("t_budget."):
+            scale, tol = float(np.abs(a).max()), MESH_BUDGET_TOL
+        else:
+            scale = max(1.0, float(np.abs(a).max()))
+            tol = 1e-8 if (name in loose or name.startswith("upscale.")) \
+                else MESH_TOL
+        err = float(np.abs(b - a).max()) / scale
+        errs[name] = err
+        if not np.isfinite(b).all() or not err <= tol:
+            raise AssertionError(f"{what}: {name} differs by {err:.3e} "
+                                 f"(bound {tol:.0e})")
+    return errs
+
+
+def mesh_text(errs):
+    main = max(errs[k] for k in MESH_MAIN)
+    rest = {k: v for k, v in errs.items() if k not in MESH_MAIN}
+    worst = sorted(rest, key=rest.get)[-4:]
+    return (f"main fields {main:.3e}; largest others "
+            + ", ".join(f"{k} {rest[k]:.3e}" for k in reversed(worst)))
+
+
+def production_f64(device, nx=48, ny=32, nz=MESH_CASE["nz"],
+                   nt=MESH_CASE["nt"], **flags):
+    from roms_tpu_torch.cases import bench_production
+    cfg = bench_production.config(nx=nx, ny=ny, nz=nz, nt=nt).replace(
+        **flags)
+    grid, st, frc = bench_production.setup(cfg, dtype=torch.float64,
+                                           device=device)
+    return cfg, grid, st, frc
+
+
+def production_forced(device, nz=MESH_CASE["nz"], nt=MESH_CASE["nt"]):
+    """production_f64 48x32 with mCDR point releases at MESH_RELEASES
+    (global indices, made block-local by the step's offsets) and a
+    3-argument set_forces hook computing COARE bulk fluxes from an analytic
+    atmosphere and the live state's SST and surface currents (reference:
+    set_forces.F -> bulk_frc.F), the path Experiment takes with bulk
+    series: (cfg, grid, state, forcing, hook).  tests/test_torch_dist.py
+    runs it on the CPU."""
+    from roms_tpu_torch.cdr import CdrForcing
+    from roms_tpu_torch.ops.bulk import bulk_flux
+    cfg, grid, st, frc = production_f64(device, nz=nz, nt=nt)
+    rng = np.random.default_rng(17)
+    n, ncdr = len(MESH_RELEASES), 3
+    jl, il = (torch.tensor(c, device=device) for c in zip(*MESH_RELEASES))
+    f64 = dict(dtype=torch.float64, device=device)
+    frc = frc.replace(cdr=CdrForcing(
+        iloc=il, jloc=jl, icdr=torch.arange(n, device=device) % ncdr,
+        prf=torch.as_tensor(rng.uniform(0.0, 2e3, (n, cfg.nt, cfg.nz)),
+                            **f64),
+        flx=torch.as_tensor(rng.uniform(0.5, 1.5, (ncdr, cfg.nt)), **f64)))
+    jy, ix = st.zeta.shape
+    y, x = torch.meshgrid(torch.arange(jy, **f64) / jy,
+                          torch.arange(ix, **f64) / ix, indexing="ij")
+
+    def hook(t, base, st):
+        day = 2 * np.pi * t / 86400.0
+        fx = bulk_flux(8.0 * torch.sin(np.pi * y) + 2.0,
+                       3.0 * torch.cos(np.pi * x), 14.0 + 4.0 * y,
+                       0.008 + 0.002 * x, 0.1 * x * y, 330.0 + 20.0 * x,
+                       250.0 * (1.0 + np.sin(day)) + 0 * x,
+                       st.t[cfg.itemp, -1], st.u[-1], st.v[-1], grid, cfg)
+        stflx = base.stflx.clone()
+        stflx[cfg.itemp] = fx.stflx_temp
+        return base.replace(sustr=fx.sustr, svstr=fx.svstr, stflx=stflx,
+                            srflx=fx.srflx, swflx=fx.swflx)
+
+    return cfg, grid, st, frc, hook
+
+
+def mesh_case(tag, nx, ny, flags, device):
+    """One of 15b's cases: (cfg, grid, state, forcing, hook or None)."""
+    if tag == "cdr_bulk":
+        return production_forced(device)
+    return (*production_f64(device, nx, ny, **flags), None)
+
+
+def gathered_diag(state_np, grid, cfg):
+    """compute_diag of a gathered (numpy) state on the card: the row."""
+    from roms_tpu_torch import bridge
+    from roms_tpu_torch.diag import compute_diag
+    st = bridge.state_from_numpy(state_np, dtype=torch.float64,
+                                 device=grid.h.device)
+    d = compute_diag(st, grid, cfg)
+    return [float(d.avke), float(d.avke2b), float(d.cu_adv), float(d.cu_w)]
+
+
+def rank_15a(mesh):
+    """A world of one on NCCL: run_distributed on the 1x1 mesh against
+    driver.run on the same card, every field and row bitwise."""
+    import torch.distributed as tdist
+    from roms_tpu_torch import bridge
+    from roms_tpu_torch.driver import run, run_distributed
+    one = torch.ones(1, device=mesh.device)
+    tdist.all_reduce(one)           # NCCL itself, on a world of one
+    cfg, grid, st, frc = production_f64(mesh.device)
+    reset_counts()
+    sd, rows_d = run_distributed(grid, st, frc, cfg, mesh, nsteps=3)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    s1, rows_1 = run(grid, st, frc, cfg, nsteps=3)
+    a, b = flat_tree(bridge.to_numpy(s1)), flat_tree(bridge.to_numpy(sd))
+    differ = [k for k in a if not np.array_equal(a[k], b[k])]
+    return {"counts": counts, "differ": differ, "fields": len(a),
+            "rows_equal": bool(np.array_equal(rows_d, rows_1)),
+            "nccl": float(one), "backend": mesh.backend,
+            "shape": mesh.shape}
+
+
+def rank_15(mesh, infile):
+    """15b-15d on one rank of the 2x2 gloo mesh on cuda:0."""
+    from roms_tpu_torch import bridge
+    from roms_tpu_torch.driver import run_distributed
+    from roms_tpu_torch.parallel.dist import pad_for_mesh
+    out = {}
+    t0 = time.perf_counter()
+    # 15b: production without options (all three kernels), with the
+    # budgets and the upscale capture, on a grid the mesh does not divide,
+    # and with mCDR releases and a bulk-forcing hook
+    for tag, nx, ny, flags in MESH_TAGS:
+        cfg, grid, st, frc, hook = mesh_case(tag, nx, ny, flags, mesh.device)
+        reset_counts()
+        sd, rows = run_distributed(grid, st, frc, cfg, mesh, nsteps=3,
+                                   forcing_fn=hook)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        # a padded grid gates the tracer and KPP kernels off, as in the
+        # JAX package (cuda_tracer.usable, cuda_kpp.usable)
+        check_counts(counts, 3, pad_for_mesh(cfg, mesh),
+                     f"15b {tag} rank {mesh.rank}")
+        sd = bridge.to_numpy(sd)
+        row = gathered_diag(sd, grid, cfg)
+        out[tag] = {"counts": counts, "rows": rows,
+                    "diag_bitwise": row == rows[-1, 1:].tolist()}
+        if mesh.rank == 0:
+            out[tag]["state"] = flat_tree(sd)
+        if tag == "plain":
+            out["particles"] = mesh_particles(mesh, cfg, grid, sd)
+    out["15b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["15c"] = mesh_flux_frc(mesh, infile)
+    out["15c_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["15d"] = mesh_full_width(mesh)
+    out["15d_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_particles(mesh, cfg, grid, state_np, n=20000, nsteps=3):
+    """The distributed particle step on the 2x2 blocks of a gathered state
+    against advance_particles on the global fields, bitwise."""
+    from roms_tpu_torch.parallel.dist import to_block
+    from roms_tpu_torch.particles import (advance_particles,
+                                          make_distributed_particle_step,
+                                          seed_particles)
+    dev = mesh.device
+    f = {k: torch.as_tensor(state_np[k], device=dev)
+         for k in ("u", "v", "we", "wi", "hz")}
+    rng = np.random.default_rng(21)
+    ps0 = seed_particles(rng.uniform(-1.0, cfg.nx + 1.0, n),
+                         rng.uniform(-1.0, cfg.ny + 1.0, n),
+                         rng.uniform(-0.5, cfg.nz + 0.5, n),
+                         dtype=torch.float64, device=dev)
+    ref = ps0
+    for _ in range(nsteps):
+        ref = advance_particles(ref, f["u"], f["v"], f["we"], f["wi"],
+                                f["hz"], grid, cfg)
+    fb = to_block(f, mesh, cfg.halo)
+    gb = to_block(grid, mesh, cfg.halo)
+    step = make_distributed_particle_step(cfg, mesh)
+    ps = ps0
+    for _ in range(nsteps):
+        ps = step(ps, fb["u"], fb["v"], fb["we"], fb["wi"], fb["hz"], gb)
+    torch.cuda.synchronize()
+    differ = [k for k in ("px", "py", "pz", "dpxm", "dpym", "dpzm", "active",
+                          "n_bot", "n_sur")
+              if not torch.equal(getattr(ps, k), getattr(ref, k))]
+    return {"differ": differ, "active": int(ps.active.sum()), "n": n}
+
+
+def mesh_flux_frc(mesh, infile, nsteps=20):
+    """15c: Flux_frc in float64 through Experiment.run_distributed (the
+    file-driven forcing path on every rank; Flux_frc has no bulk series,
+    so its hook asks for no surface view: 15b's cdr_bulk case drives
+    that); the rows, the masses of the gathered state."""
+    from types import SimpleNamespace
+    from roms_tpu_torch.cases import flux_frc, uswc
+    from roms_tpu_torch.experiment import assemble
+    from roms_tpu_torch.parallel.dist import pad_for_mesh
+    exp = assemble(infile, flux_frc.base_config(),
+                   tracer_names=("temp", "salt"), nz=uswc.NZ,
+                   dtype=torch.float64, device=mesh.device)
+    try:
+        reset_counts()
+        st, rows = exp.run_distributed(mesh, nsteps=nsteps)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        exp.fileset.close()
+    check_counts(counts, nsteps, pad_for_mesh(exp.cfg, mesh),
+                 f"15c rank {mesh.rank}")
+    masses = tracer_masses(SimpleNamespace(t=torch.as_tensor(st.t),
+                                           hz=torch.as_tensor(st.hz)),
+                           exp.grid)
+    return {"rows": rows, "masses": masses, "counts": counts,
+            "shape": (exp.cfg.nx, exp.cfg.ny, exp.cfg.nz, exp.cfg.nt)}
+
+
+def mesh_full_width(mesh, warm=1, nsteps=3):
+    """15d: production 384x192x60 nt=34 f32 on this rank's block: ms/step
+    (each rank synchronised, then a barrier), peak memory, the host ms of
+    one 3D and one 2D exchange."""
+    import torch.distributed as tdist
+    from roms_tpu_torch.cases import bench_production
+    from roms_tpu_torch.ops.weights import set_weights
+    from roms_tpu_torch.parallel.dist import make_distributed_step, to_block
+    from roms_tpu_torch.parallel.halo import HaloExchange
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = bench_production.config(**MESH_FULL)
+    grid, st, frc = bench_production.setup(cfg, dtype=torch.float32,
+                                           device=mesh.device)
+    h = cfg.halo
+    st, frc = to_block(st, mesh, h), to_block(frc, mesh, h)
+    grid = to_block(grid, mesh, h)
+    gc.collect()
+    torch.cuda.empty_cache()
+    w1, w2, _ = set_weights(cfg.ndtfast)
+    step = make_distributed_step(cfg, mesh)
+    reset_counts()
+    for i in range(warm + nsteps):
+        if i == warm:
+            torch.cuda.synchronize()
+            tdist.barrier()
+            t0 = time.perf_counter()
+        st = step(st, frc, grid, w1, w2, first_step=(i == 0))
+    torch.cuda.synchronize()
+    tdist.barrier()
+    ms = 1e3 * (time.perf_counter() - t0) / nsteps
+    counts = read_counts()
+    check_counts(counts, warm + nsteps, cfg, f"15d rank {mesh.rank}")
+    check_finite(st, f"15d rank {mesh.rank}")
+    halo = HaloExchange(mesh, cfg.halo, cfg.ew_periodic, cfg.ns_periodic)
+    ex = {}
+    for name, a in (("3d", st.u), ("2d", st.zeta)):
+        halo(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            halo(a)
+        torch.cuda.synchronize()
+        ex[name] = 1e3 * (time.perf_counter() - t0) / 10
+    return {"ms": ms, "counts": counts, "ex": ex,
+            "peak": torch.cuda.max_memory_allocated() / 2**30,
+            "block": tuple(st.zeta.shape)}
+
+
+def phase_mesh(device, workdir, smi):
+    from roms_tpu_torch.cases import flux_frc, uswc
+    from roms_tpu_torch.driver import run
+    from roms_tpu_torch.ops import _build
+    from roms_tpu_torch.parallel.dist import launch
+    _build.build()          # once, before any rank needs the library
+    t0 = time.perf_counter()
+    (a,) = launch(rank_15a, 1, "nccl", "cuda", timeout=300.0)
+    expected = (2 * 3, 4 * 3, 2 * 3)
+    if a["differ"] or not a["rows_equal"] or a["counts"] != expected \
+            or a["nccl"] != 1.0 or a["backend"] != "nccl":
+        raise AssertionError(f"15a: NCCL 1x1 against driver.run: fields "
+                             f"differ {a['differ']}, rows equal "
+                             f"{a['rows_equal']}, launches {a['counts']} "
+                             f"(expected {expected})")
+    say(f"[15a mesh] NCCL world of one ({a['shape']} mesh), production "
+        f"48x32x16 nt=4 f64, 3 steps: all {a['fields']} state fields and "
+        f"every diag row bitwise equal to driver.run on the card; "
+        f"launches tracer {a['counts'][0]}, solve {a['counts'][1]}, kpp "
+        f"{a['counts'][2]} ({time.perf_counter() - t0:.1f} s)")
+
+    # the single-block references on this card
+    from roms_tpu_torch import bridge
+    refs = {}
+    for tag, nx, ny, flags in MESH_TAGS:
+        cfg, grid, st, frc, hook = mesh_case(tag, nx, ny, flags, device)
+        s1, rows = run(grid, st, frc, cfg, nsteps=3, forcing_fn=hook)
+        refs[tag] = (flat_tree(bridge.to_numpy(s1)), rows)
+    # Flux_frc's inputs for 15c, written once before the ranks read them
+    inp = os.path.join(workdir, "mesh_input")
+    uswc.generate_inputs(inp)
+    infile = os.path.join(workdir, "mesh_flux_frc.in")
+    with open(infile, "w") as f:
+        f.write(flux_frc.BENCHMARK_IN.format(inp=inp, ntimes=20))
+
+    t0 = time.perf_counter()
+    outs = launch(rank_15, 4, "gloo", "cuda:0", args=(infile,),
+                  timeout=900.0)
+    wall = time.perf_counter() - t0
+    for tag, (ref, rows1) in refs.items():
+        errs = mesh_compare(outs[0][tag]["state"], ref, f"15b {tag}")
+        for r, o in enumerate(outs):
+            if not o[tag]["diag_bitwise"]:
+                raise AssertionError(f"15b {tag} rank {r}: the last diag "
+                                     "row is not compute_diag's of the "
+                                     "gathered state")
+            if not np.array_equal(o[tag]["rows"], outs[0][tag]["rows"]):
+                raise AssertionError(f"15b {tag}: ranks disagree on rows")
+        rows = outs[0][tag]["rows"]
+        e_rows = float(np.max(np.abs(rows[:, 1:4] - rows1[:, 1:4])
+                              / np.abs(rows1[:, 1:4]).clip(1e-300)))
+        extra = {"options": "budgets+upscale ",
+                 "cdr_bulk": "mCDR releases+bulk hook "}.get(tag, "")
+        say(f"[15b mesh] 2x2 gloo ranks on one card, production "
+            f"{'49x33' if tag == '49x33' else '48x32'}x16 nt=4 f64 "
+            f"{extra}3 steps "
+            f"against the single block on the card: {mesh_text(errs)}; "
+            f"last diag row bitwise compute_diag's of the gathered state on "
+            f"every rank, rows {e_rows:.3e} from the single block's; "
+            f"launches a rank (tracer, solve, kpp) "
+            + " ".join(str(o[tag]["counts"]) for o in outs))
+    for r, o in enumerate(outs):
+        p = o["particles"]
+        if p["differ"]:
+            raise AssertionError(f"15b particles rank {r}: {p['differ']} "
+                                 "differ from advance_particles")
+    say(f"[15b mesh] distributed particle step, {outs[0]['particles']['n']}"
+        f" particles, 3 steps: bitwise advance_particles on every rank "
+        f"({outs[0]['particles']['active']} active); 15b "
+        f"{max(o['15b_s'] for o in outs):.1f} s")
+
+    c = outs[0]["15c"]
+    oracle = np.loadtxt(os.path.join(DATA, "flux_frc_oracle.txt"))
+    rows = c["rows"]
+    if rows.shape != oracle.shape:
+        raise AssertionError(f"15c: {rows.shape} rows vs {oracle.shape}")
+    worst = worst_rel(rows, oracle)
+    for col, rtol in zip((1, 2, 3, 4), REAL_RTOL):
+        if not (np.allclose(rows[:, col], oracle[:, col], rtol=rtol,
+                            atol=1e-300)
+                and np.isclose(rows[:, col].sum(), oracle[:, col].sum(),
+                               rtol=rtol)):
+            raise AssertionError(f"15c flux_frc: column {col} max rel dev "
+                                 f"{worst[col]:.3e} > {rtol}")
+    m_rel, _ = check_masses("flux_frc", c["masses"], None)
+    nx, ny, nz, nt = c["shape"]
+    say(f"[15c mesh] Flux_frc {nx}x{ny}x{nz} nt={nt} f64 on 2x2 gloo ranks "
+        f"through Experiment.run_distributed, 20 steps vs "
+        f"tests/data/flux_frc_oracle.txt: max rel dev KE {worst[1]:.3e}, "
+        f"barotropic KE {worst[2]:.3e}, CFL {worst[3]:.3e}, vertical CFL "
+        f"{worst[4]:.3e} (rtol {REAL_RTOL}), tracer masses {m_rel:.3e} "
+        f"(1e-9); launches a rank " + " ".join(str(o["15c"]["counts"])
+                                               for o in outs)
+        + f"; 15c {max(o['15c_s'] for o in outs):.1f} s")
+
+    d = [o["15d"] for o in outs]
+    say(f"[15d mesh] production {MESH_FULL['nx']}x{MESH_FULL['ny']}x"
+        f"{MESH_FULL['nz']} nt={MESH_FULL['nt']} f32 on 2x2 ranks "
+        f"(blocks {d[0]['block']}), 1 warm-up + 3 timed steps, finite: "
+        f"{max(x['ms'] for x in d):.3f} ms/step (slowest rank; ranks "
+        + " ".join(f"{x['ms']:.3f}" for x in d)
+        + "), peak memory a rank " + " ".join(f"{x['peak']:.3f}" for x in d)
+        + " GiB, one exchange 3D (u) "
+        + " ".join(f"{x['ex']['3d']:.3f}" for x in d) + " ms, 2D (zeta) "
+        + " ".join(f"{x['ex']['2d']:.3f}" for x in d)
+        + f" ms host time; launches a rank {d[0]['counts']}; four ranks "
+        f"sharing one card with the halos staged through the host: not a "
+        f"scaling number; {smi}; 15d "
+        f"{max(o['15d_s'] for o in outs):.1f} s, the launch {wall:.1f} s")
+
+
 def main():
     from roms_tpu_torch.ops import _build  # noqa: F401  (fails off the repo)
     t0 = time.perf_counter()
@@ -1887,6 +2363,7 @@ def main():
         phase_bgc_f32(device, workdir, ref64)
         phase_output(device, workdir)
         phase_options(device, workdir)
+        phase_mesh(device, workdir, smi)
     # the card again, where the end of a long log still shows it
     say(f"[done] {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

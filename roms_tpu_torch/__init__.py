@@ -20,6 +20,7 @@ output files, exact restart and host tools (`io/`, `tools/`); every step
 option (isoneutral mixing, the non-hydrostatic projection, the budgets,
 the upscale capture), the nested-domain workflow (`pflx.py`,
 `sponge_tune.py`, `io/upscale.py`, `cases/nested_basin.py`) and
-Lagrangian particles (`particles.py`).  Distributed stepping raises
-`NotImplementedError`.
+Lagrangian particles (`particles.py`), on one device or over a rank
+mesh with `torch.distributed` (`parallel/dist.py`, `driver.run_distributed`,
+partit/ncjoin in `tools/partition.py`).
 """

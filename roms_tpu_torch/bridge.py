@@ -104,12 +104,15 @@ def forcing_from_numpy(d: dict, *, dtype: torch.dtype,
 
 
 def to_numpy(x):
-    """Tensor -> ndarray; dataclass or dict of tensors -> dict of ndarrays
-    (None stays None)."""
+    """Tensor -> ndarray; dataclass or dict of tensors (or of ndarrays, as
+    `run_distributed` returns them) -> dict of ndarrays (None stays
+    None)."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
+    if isinstance(x, np.ndarray):
+        return x
     if isinstance(x, dict):
         return {k: to_numpy(v) for k, v in x.items()}
     if dataclasses.is_dataclass(x):

@@ -208,18 +208,29 @@ def cdr_3d(cfg: ModelConfig, flx_3d: np.ndarray,
                                              device=device))
 
 
-def _point_increment(cdr: CdrForcing, pmn, dt):
+def _point_increment(cdr: CdrForcing, pmn, dt, j0=None, i0=None):
     """dt * pmn * prf * flx at each release point, (nprf, nt, nz), and the
-    points' flat (j*ix + i) indices."""
+    points' flat (j*ix + i) indices.  j0/i0: a mesh block's offsets; the
+    release indices are global padded-array indices, made block-local
+    here, and the points outside the block (its halo included) add zero
+    at (0, 0) (reference: cdr_frc.F per-rank release search)."""
     amp = cdr.prf * cdr.flx[cdr.icdr][:, :, None]
-    incr = dt * pmn[cdr.jloc, cdr.iloc][:, None, None] * amp
-    return incr, cdr.jloc * pmn.shape[-1] + cdr.iloc
+    jl, il = cdr.jloc, cdr.iloc
+    if j0 is not None:
+        jy, ix = pmn.shape
+        jl, il = jl - j0, il - i0
+        inb = (jl >= 0) & (jl < jy) & (il >= 0) & (il < ix)
+        jl, il = torch.where(inb, jl, 0), torch.where(inb, il, 0)
+        amp = amp * inb[:, None, None]
+    incr = dt * pmn[jl, il][:, None, None] * amp
+    return incr, jl * pmn.shape[-1] + il
 
 
-def apply_cdr_all(t_rhs, cdr: CdrForcing, pmn, dt):
+def apply_cdr_all(t_rhs, cdr: CdrForcing, pmn, dt, j0=None, i0=None):
     """The CDR source added onto the Hz-weighted tracer r.h.s. of every
     tracer, t_rhs (nt, nz, jy, ix) (reference: step3d_t_ISO.F:859-902).
-    Release points that share a cell add up (`index_add_`); returns a new
+    Release points that share a cell add up (`index_add_`); j0/i0 place a
+    mesh block (grid.j0/i0; None on a single block); returns a new
     tensor."""
     if cdr is None:
         return t_rhs
@@ -227,7 +238,7 @@ def apply_cdr_all(t_rhs, cdr: CdrForcing, pmn, dt):
     if cdr.flx_3d is not None:
         out = out + dt * pmn[None, None] * cdr.flx_3d
     if cdr.prf is not None and cdr.prf.shape[0] > 0:
-        incr, flat = _point_increment(cdr, pmn, dt)
+        incr, flat = _point_increment(cdr, pmn, dt, j0, i0)
         out = out.clone(memory_format=torch.contiguous_format)
         nt, nz, jy, ix = out.shape
         out.view(nt, nz, jy * ix).index_add_(2, flat, incr.permute(1, 2, 0))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -126,3 +127,65 @@ def _local_fields(state: OceanState, grid: Grid, cfg: ModelConfig):
                      + torch.clamp(shift(state.flx_v, 1, 0), min=0.0)
                      - torch.clamp(state.flx_v, max=0.0))
     return ke, ke2b, pe, dvol, cx, cw, v2_2d
+
+
+def make_distributed_diag(cfg: ModelConfig, mesh):
+    """This rank's diagnostics over block-halo-layout state
+    (`parallel.dist`); every rank calls it and gets the same Diag.
+
+    The four volume sums all-gather each block's interior partial fields
+    (ke, ke2b, pe, dvol), lay them out in canonical (y, x) order, crop the
+    mesh-divisibility pad and call the same `deterministic_sum` as
+    `compute_diag`.  The Courant maxima all-gather each block's first
+    maximum over its share of the interior with its index in the global
+    (k, j, i) order, and take the first of the largest, as `compute_diag`'s
+    argmax does.  So the diagnostics are bitwise those of `compute_diag`
+    on the gathered state, on any grid and any mesh (the reference's
+    rank-count-independent reduction, diag.F:14 SUM_BY_PAIRS,
+    :434-470).  `cfg` is the mesh-padded config (pad_for_mesh)."""
+    h = cfg.halo
+    py, px = mesh.shape
+    my, mx = cfg.ny // py, cfg.nx // px
+    ny, nx = cfg.ny - cfg.pad_n, cfg.nx - cfg.pad_e
+    j0, i0 = mesh.iy * my, mesh.ix * mx
+    # this block's share of the unpadded interior
+    ry, rx = max(0, min(my, ny - j0)), max(0, min(mx, nx - i0))
+
+    def diag(state: OceanState, grid: Grid) -> Diag:
+        ke, ke2b, pe, dvol, cx, cw, v2_2d = _local_fields(state, grid, cfg)
+        parts = torch.stack([_interior(f, h) for f in (ke, ke2b, pe, dvol)])
+        blocks = mesh.all_gather(parts)
+        g = torch.cat([torch.cat([blocks[r] for r in row], dim=-1)
+                       for row in mesh.ranks], dim=-2)[:, :ny, :nx]
+        s_ke, s_ke2b, s_pe, s_zeta = (deterministic_sum(g[k])
+                                      for k in range(4))
+
+        row = torch.zeros(5, dtype=torch.float64, device=cx.device)
+        if ry and rx:
+            cx_i = _interior(cx, h)[:, :ry, :rx].reshape(-1)
+            k = torch.argmax(cx_i)
+            kz, rem = k // (ry * rx), k % (ry * rx)
+            gidx = kz * (ny * nx) + (j0 + rem // rx) * nx + i0 + rem % rx
+            row = torch.stack([torch.ones_like(row[0]), cx_i[k].double(),
+                               _interior(cw, h)[:, :ry, :rx].reshape(-1)[k]
+                               .double(),
+                               torch.max(_interior(v2_2d, h)[:ry, :rx])
+                               .double(), gidx.double()])
+        rows = torch.stack(mesh.all_gather(row)).cpu().numpy()
+        rows = rows[rows[:, 0] == 1.0]
+        # the first of the largest (a NaN counts as the largest, as in
+        # argmax)
+        best = min(rows, key=lambda r: (not np.isnan(r[1]),
+                                        -np.nan_to_num(r[1], nan=0.0), r[4]))
+        dtype = parts.dtype
+
+        def scalar(x):
+            return torch.tensor(x, dtype=dtype, device=parts.device)
+
+        denom = grid.volume + s_zeta
+        return Diag(avke=s_ke / denom, avke2b=s_ke2b / denom,
+                    avpe=s_pe / denom, avzeta=s_zeta / grid.area,
+                    cu_adv=scalar(best[1]), cu_w=scalar(best[2]),
+                    v2d_max=torch.sqrt(scalar(np.max(rows[:, 3]))))
+
+    return diag

@@ -1,5 +1,6 @@
-"""Run driver: step loop and diagnostics log (port of roms_tpu/driver.py:run;
-reference: main.F:55-83)."""
+"""Run driver: step loop and diagnostics log, on one block (`run`) or on
+a rank mesh (`run_distributed`) (port of roms_tpu/driver.py; reference:
+main.F:55-83)."""
 
 from __future__ import annotations
 
@@ -70,15 +71,34 @@ def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
     timers: optional monitor.Timers; accumulates the 'step' phase and the
     step count for the run banner (reference: timers.F, main.F:45-47).
     """
-    if nsteps is None:
-        nsteps = cfg.ntimes
     w1, w2, _ = set_weights(cfg.ndtfast)     # host float64 weights
 
+    def step_fn(st, frc, first_step):
+        return step(st, frc, grid, w1, w2, cfg, first_step=first_step)
+
+    def hook_forcing(t, st):
+        return _call_forcing_fn(forcing_fn, t, forcing, st)
+
+    return _loop(state, forcing, cfg, nsteps, step_fn,
+                 (lambda st: compute_diag(st, grid, cfg)) if collect_diag
+                 else None, None if forcing_fn is None else hook_forcing,
+                 print_diag, blowup_check, step_hook, ninfo, error_log,
+                 timers)
+
+
+def _loop(state, forcing, cfg: ModelConfig, nsteps, step_fn, diag_fn,
+          forcing_at, print_diag, blowup_check, step_hook, ninfo, error_log,
+          timers):
+    """The step loop of `run` and `run_distributed`: step_fn(state,
+    forcing, first_step), diag_fn(state) -> Diag or None, forcing_at(t,
+    state) -> the step's forcing or None for `forcing` every step."""
+    if nsteps is None:
+        nsteps = cfg.ntimes
     rows = []
 
     def log(st, iic):
-        if collect_diag and _diag_due(iic, ninfo):
-            d = compute_diag(st, grid, cfg)
+        if diag_fn is not None and _diag_due(iic, ninfo):
+            d = diag_fn(st)
             row = (iic, float(d.avke), float(d.avke2b),
                    float(d.cu_adv), float(d.cu_w))
             rows.append(row)
@@ -93,9 +113,9 @@ def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
         timers.tic("step")
     log(state, 0)
     for i in range(nsteps):
-        frc = forcing if forcing_fn is None else _call_forcing_fn(
-            forcing_fn, t0 + i * cfg.dt, forcing, state)
-        state = step(state, frc, grid, w1, w2, cfg, first_step=(i == 0))
+        frc = forcing if forcing_at is None else forcing_at(
+            t0 + i * cfg.dt, state)
+        state = step_fn(state, frc, i == 0)
         log(state, i + 1)
         if step_hook is not None:
             step_hook(state, i + 1)
@@ -105,3 +125,77 @@ def run(grid, state, forcing, cfg: ModelConfig, nsteps: int | None = None,
         timers.toc("step", sync=state.zeta)
         timers.nsteps += nsteps
     return state, np.asarray(rows)
+
+
+def run_distributed(grid, state, forcing, cfg: ModelConfig, mesh,
+                    nsteps: int | None = None, collect_diag: bool = True,
+                    print_diag: bool = False, blowup_check: bool = True,
+                    step_hook=None, forcing_fn=None, ninfo: int = 1,
+                    error_log=None, timers=None):
+    """`run` on a rank mesh (`parallel.dist.Mesh`): every rank calls it
+    with the same padded-global grid, state and forcing (SPMD over
+    processes); each steps its block-halo block and all gather at the
+    end.  Returns (the padded-global state as numpy arrays, diag_rows) on
+    every rank.
+
+    Diagnostics come from `diag.make_distributed_diag`, bitwise those of
+    `compute_diag` on the gathered state and the same on every rank, so
+    `check_blowup` raises on every rank together (reference: diag.F
+    cross-rank reduction + blowup test diag.F:624-634); rank 0 prints.
+    forcing_fn runs on every rank on the padded-global base forcing, as
+    every reference rank re-reads its forcing each step (set_forces,
+    main.F:385-386), at t0 + i*dt on the host; its global Forcing is cut
+    into the rank's block.  A 3-argument hook gets a surface-only
+    padded-global view of the live state, gathered from the blocks: `.t`
+    (nt, 1, ...), `.u`/`.v` (1, ...), tensors on the base forcing's
+    device, so `st.t[itemp, -1]` and `st.u[-1]` read as on the full
+    state (bulk_frc.F reads the SST and the surface currents only);
+    hooks tagged `needs_state = False` skip the gather.  step_hook gets
+    the rank's block state; error_log, timers and the drain of an async
+    hook as in `run`."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from roms_tpu_torch.diag import make_distributed_diag
+    from roms_tpu_torch.parallel.dist import (from_blocks,
+                                              make_distributed_step,
+                                              pad_for_mesh, to_block)
+
+    w1, w2, _ = set_weights(cfg.ndtfast)
+    h = cfg.halo
+    cfg_p = pad_for_mesh(cfg, mesh)   # the same config when it divides
+    pads = (cfg_p.pad_n, cfg_p.pad_e)
+    dstep = make_distributed_step(cfg, mesh)
+    grid_b = to_block(grid, mesh, h, pads)
+    pass_state = (forcing_fn is not None and _accepts_state(forcing_fn)
+                  and getattr(forcing_fn, "needs_state", True))
+
+    def step_fn(st, frc, first_step):
+        return dstep(st, frc, grid_b, w1, w2, first_step)
+
+    diag = make_distributed_diag(cfg_p, mesh)
+
+    def diag_fn(st):
+        return diag(st, grid_b)
+
+    def surface_view(st_b):
+        surf = from_blocks({"t": st_b.t[:, -1:], "u": st_b.u[-1:],
+                            "v": st_b.v[-1:]}, mesh, h, pads)
+        return SimpleNamespace(**{
+            k: torch.as_tensor(v, dtype=forcing.sustr.dtype,
+                               device=forcing.sustr.device)
+            for k, v in surf.items()})
+
+    def hook_forcing(t, st_b):
+        view = surface_view(st_b) if pass_state else None
+        return to_block(_call_forcing_fn(forcing_fn, t, forcing, view),
+                        mesh, h, pads)
+
+    state_b, rows = _loop(
+        to_block(state, mesh, h, pads), to_block(forcing, mesh, h, pads),
+        cfg, nsteps, step_fn, diag_fn if collect_diag else None,
+        None if forcing_fn is None else hook_forcing,
+        print_diag and mesh.rank == 0, blowup_check, step_hook, ninfo,
+        error_log, timers)
+    return from_blocks(state_b, mesh, h, pads), rows

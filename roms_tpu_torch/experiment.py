@@ -105,6 +105,17 @@ class Experiment:
         return run(self.grid, self.state, self.forcing0, self.cfg,
                    forcing_fn=self.forcing_fn, **kw)
 
+    def run_distributed(self, mesh, **kw):
+        """Run this experiment on a rank mesh (`parallel.dist.Mesh`; every
+        rank calls it on its own Experiment), with the full time-dependent
+        forcing path on every rank (record search, two-slot
+        interpolation, bulk fluxes on the gathered surface, tides;
+        reference: set_forces on every rank every step, main.F:385)."""
+        from roms_tpu_torch.driver import run_distributed
+        return run_distributed(self.grid, self.state, self.forcing0,
+                               self.cfg, mesh, forcing_fn=self.forcing_fn,
+                               **kw)
+
 
 def _decode_point_sources(field2d: np.ndarray):
     """Split the reference's combined `value = fraction + 10*index`

@@ -57,13 +57,15 @@ class Grid(_Replace):
     visc2_r: Optional[torch.Tensor] = None
     visc2_p: Optional[torch.Tensor] = None
     diff2: Optional[torch.Tensor] = None
-    # edge ownership; None = single block, which owns every edge
-    own_w: Optional[torch.Tensor] = None
-    own_e: Optional[torch.Tensor] = None
-    own_s: Optional[torch.Tensor] = None
-    own_n: Optional[torch.Tensor] = None
-    j0: Optional[torch.Tensor] = None
-    i0: Optional[torch.Tensor] = None
+    # edge ownership and the block's offsets in the padded interior, fixed
+    # per mesh rank (parallel.dist._with_ownership); None = single block,
+    # which owns every edge
+    own_w: Optional[bool] = None
+    own_e: Optional[bool] = None
+    own_s: Optional[bool] = None
+    own_n: Optional[bool] = None
+    j0: Optional[int] = None
+    i0: Optional[int] = None
 
 
 def build_grid(cfg: ModelConfig, h, pm, pn, f, rmask, xr=None, yr=None, *,

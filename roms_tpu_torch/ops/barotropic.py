@@ -21,28 +21,27 @@ from roms_tpu_torch.parallel.halo import shift
 def _interior_mask(shape, cfg: ModelConfig, stagger: str, grid=None):
     """Points updated by the interior fast-averaging formula; the
     complement takes the boundary-strip formula (reference:
-    step2d_FB.F:407-439 vs :474-528).  Single block only."""
-    if grid is not None and any(getattr(grid, f"own_{e}") is not None
-                                for e in "wesn"):
-        raise NotImplementedError("distributed stepping: ROADMAP Queue 1 "
-                                  "item 13")
+    step2d_FB.F:407-439 vs :474-528).  The edge strips are knocked out
+    only on blocks owning the physical edge (grid.own_*: None on a single
+    block, which owns every edge; Python bools on a mesh rank)."""
+    own = [True if grid is None or getattr(grid, f"own_{e}") is None
+           else bool(getattr(grid, f"own_{e}")) for e in "wesn"]
+    ow, oe, os_, on = own
     jy, ix = shape
     pe, pn = cfg.pad_e, cfg.pad_n
+    wlim = 3 if stagger == "u" else 2     # west of Fortran istrU=2
+    slim = 3 if stagger == "v" else 2
     m = np.ones(shape, bool)
-    if stagger == "u":
-        if not cfg.ew_periodic:
-            m[:, :3] = False
-            m[:, ix - 2 - pe:] = False
-        if not cfg.ns_periodic:
-            m[:2, :] = False
+    if not cfg.ew_periodic:
+        if ow:
+            m[:, :wlim] = False
+        if oe:
+            m[:, ix - 2 - pe:] = False    # east of Fortran iend=nx
+    if not cfg.ns_periodic:
+        if os_:
+            m[:slim, :] = False
+        if on:
             m[jy - 2 - pn:, :] = False
-    else:
-        if not cfg.ns_periodic:
-            m[:3, :] = False
-            m[jy - 2 - pn:, :] = False
-        if not cfg.ew_periodic:
-            m[:, :2] = False
-            m[:, ix - 2 - pe:] = False
     return torch.as_tensor(m, device=None if grid is None else grid.h.device)
 
 

@@ -95,31 +95,28 @@ def _as_edge(val, orig):
 
 def _trim_hi(val, orig, own_hi, pad: int):
     """Drop the last `pad` along-edge positions of an edge update on
-    blocks owning the high (east/north) end; there they are cross-ghost
-    /pad cells set by the corner/ghost logic."""
+    blocks owning the high (east/north) end (own_hi None or True); there
+    they are cross-ghost/pad cells set by the corner/ghost logic."""
     if pad == 0:
         return val
     val = _as_edge(val, orig)
+    if own_hi is False:
+        return val
     n = orig.shape[-1]
     keep = torch.arange(n, device=orig.device) < n - pad
-    if own_hi is not None:
-        keep = torch.logical_or(torch.logical_not(torch.as_tensor(own_hi)),
-                                keep)
     return torch.where(keep, val, orig)
 
 
 def _trim_lo(val, orig, own_lo):
     """Drop the first edge-parallel position (local index 2, Fortran istr
     / jstr) from a tangential-BC update on blocks owning the low end of
-    the edge: the staggered range starts at istrU=istr+1 there
-    (reference: u2dbc_im.F istrU loop start)."""
+    the edge (own_lo None or True): the staggered range starts at
+    istrU=istr+1 there (reference: u2dbc_im.F istrU loop start)."""
     val = _as_edge(val, orig)
+    if own_lo is False:
+        return val
     n = orig.shape[-1]
-    col = torch.arange(2, 2 + n, device=orig.device)
-    keep = col >= 3
-    if own_lo is not None:
-        keep = torch.logical_or(torch.logical_not(torch.as_tensor(own_lo)),
-                                keep)
+    keep = torch.arange(2, 2 + n, device=orig.device) >= 3
     return torch.where(keep, val, orig)
 
 

@@ -4,6 +4,9 @@ roms_tpu/ops/pallas_kpp.py).
 
 `vmix_update` launches `csrc/kpp_vmix.cu` (two kernels) for a CUDA tensor
 and calls `vmix_update_plain` for a CPU tensor; any other device raises.
+The step calls it where `usable` admits the configuration (KPP without a
+mesh-divisibility pad), and the plain version elsewhere, as the JAX
+package gates its Pallas kernel.
 Its `launches` counts the calls that launch the kernel and `last_bytes`
 holds the compulsory bytes of the last one.  The first kernel keeps the FC
 column of its tile of columns in shared memory, which the launch sizes
@@ -57,6 +60,14 @@ def launch_bytes(nz: int, jy: int, ix: int, elem: int, salinity: bool,
     planes = (4 * nz + 3 * (nz + 1) + 2 * (1 + s) + 6 + 3 * int(masking)
               + (3 + s) * (nz + 1) + 2)
     return planes * jy * ix * elem
+
+
+def usable(cfg: ModelConfig) -> bool:
+    """Whether the kernel covers this configuration's vmix update (as
+    roms_tpu/ops/pallas_kpp.py:usable): KPP on a grid without the mesh-
+    divisibility pad, whose shifted east/north edge fill the kernel does
+    not index."""
+    return cfg.lmd_kpp and cfg.pad_e == 0 and cfg.pad_n == 0
 
 
 def vmix_update(state, u, v, t, bvf, z_r, z_w, hz, forcing, grid,

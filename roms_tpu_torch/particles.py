@@ -205,3 +205,37 @@ class ParticleWriter:
 
     def close(self):
         self.nc.close()
+
+
+def make_distributed_particle_step(cfg: ModelConfig, mesh):
+    """This rank's particle step over block-halo-layout fields
+    (`parallel.dist`): fn(ps, u, v, we, wi, hz, grid) -> ParticleState,
+    in place of the reference's particle migration between ranks
+    (particles.F:661-840, :935-1010).
+
+    The particle array is replicated on every rank.  Each rank computes
+    the rates of the particles whose base cell lies in its interior (a
+    gather over its halo'd fields, the same values as the global
+    gather), the others contribute zeros, and a sum over the ranks gives
+    every rank every rate, exactly (one nonzero term each).  No particle
+    moves between ranks: ownership follows the position every step.
+    `cfg` is the unpadded config."""
+    from roms_tpu_torch.parallel.dist import pad_for_mesh
+
+    cfg_p = pad_for_mesh(cfg, mesh)
+    py, px = mesh.shape
+    my, mx = cfg_p.ny // py, cfg_p.nx // px
+    j0, i0 = mesh.iy * my, mesh.ix * mx
+
+    def dstep(ps: ParticleState, u, v, we, wi, hz, grid) -> ParticleState:
+        c_i = torch.clamp(_floor_index(ps.px + 0.5), 1, cfg.nx) - 1
+        c_j = torch.clamp(_floor_index(ps.py + 0.5), 1, cfg.ny) - 1
+        own = ((c_i >= i0) & (c_i < i0 + mx) & (c_j >= j0)
+               & (c_j < j0 + my) & ps.active)
+        local = ps.replace(px=ps.px - i0, py=ps.py - j0)
+        rates = torch.stack(rhs_particles(local, u, v, we, wi, hz, grid,
+                                          cfg))
+        rates = mesh.all_reduce(torch.where(own, rates, 0.0))
+        return _ab2_update(ps, rates[0], rates[1], rates[2], cfg)
+
+    return dstep

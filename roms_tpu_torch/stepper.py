@@ -5,12 +5,14 @@ step3d_uv2.F, step3d_t_ISO.F).
 
 All four implicit momentum solves go through `cuda_solve.momentum_implicit`
 and, under LMD_KPP, both vertical-mixing updates through
-`cuda_kpp.vmix_update`.  Both tracer stages go through
+`cuda_kpp.vmix_update` for every configuration that `cuda_kpp.usable`
+admits (not a mesh block's padded grid, whose updates take the plain
+version, as the JAX package's gate does).  Both tracer stages go through
 `cuda_tracer.tracer_stage` for every configuration that
-`cuda_tracer.usable` admits; the others (river sources) take the
-reference's batched tracer branch, whose river flux fix sits inside the
-stencil.  That one gate decides the tracer path: never the device, the
-dtype or a build.  Each wrapper launches its CUDA kernel on the card and
+`cuda_tracer.usable` admits; the others (river sources, the options of
+the batched branch, a padded grid) take the reference's batched tracer
+branch, whose river flux fix sits inside the stencil.  Those gates decide
+the paths: never the device, the dtype or a build.  Each wrapper launches its CUDA kernel on the card and
 runs its plain version on the CPU.  Point loads (pipes, mCDR releases)
 enter both tracer paths; the BGC column physics (`bgc_update`) follows
 the corrector's boundary conditions.
@@ -151,11 +153,12 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
                           dtau_o, cfg, forcing)
     we, wi = halo(om.we), halo(om.wi)
 
+    vmix_update = (cuda_kpp.vmix_update if cuda_kpp.usable(cfg)
+                   else cuda_kpp.vmix_update_plain)
     if cfg.lmd_kpp:
         # lmd_vmix + lmd_kpp at time n (reference: main.F:408-410)
-        vm = cuda_kpp.vmix_update(state, state.u, state.v, state.t,
-                                  eos_n.bvf, zr_n, zw_n, hz_n, forcing, grid,
-                                  cfg, first_step)
+        vm = vmix_update(state, state.u, state.v, state.t, eos_n.bvf, zr_n,
+                         zw_n, hz_n, forcing, grid, cfg, first_step)
         akv, akt = halo(vm.akv), halo(vm.akt)
         # (reference: lmd_kpp.F exchanges hbls/hbbl after smoothing)
         hbls, hbbl = halo(vm.hbls), halo(vm.hbbl)
@@ -256,9 +259,9 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
                         need_bvf=cfg.lmd_kpp)
     if cfg.lmd_kpp:
         # at n+1/2, from the predictor's boundary layers (main.F:434-436)
-        vm = cuda_kpp.vmix_update(state.replace(hbls=hbls, hbbl=hbbl),
-                                  u_half, v_half, t_half, eos_h.bvf, zr_n,
-                                  zw_n, hz_n, forcing, grid, cfg, first_step)
+        vm = vmix_update(state.replace(hbls=hbls, hbbl=hbbl), u_half,
+                         v_half, t_half, eos_h.bvf, zr_n, zw_n, hz_n,
+                         forcing, grid, cfg, first_step)
         akv, akt, ghat = halo(vm.akv), halo(vm.akt), vm.ghat
         hbls, hbbl = halo(vm.hbls), halo(vm.hbbl)
     ru_p, rv_p = prsgrd_mod.prsgrd(eos_h.rho, eos_h.rho1, eos_h.qp1,
@@ -458,7 +461,8 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
         load = pipe
         if forcing.cdr is not None:
             load = apply_cdr_all(torch.zeros_like(state.t) if load is None
-                                 else load, forcing.cdr, pmn, cfg.dt)
+                                 else load, forcing.cdr, pmn, cfg.dt,
+                                 j0=grid.j0, i0=grid.i0)
         t_sec_c = state.t if load is None else state.t + load / hz_n
         if src_t is not None:
             if load is None:
@@ -505,7 +509,8 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
             t_rhs = t_rhs + pipe
         if forcing.cdr is not None:
             # mCDR release injection (reference: step3d_t_ISO.F:859-902)
-            t_rhs = apply_cdr_all(t_rhs, forcing.cdr, pmn, cfg.dt)
+            t_rhs = apply_cdr_all(t_rhs, forcing.cdr, pmn, cfg.dt,
+                                  j0=grid.j0, i0=grid.i0)
         t_rhs[:, -1] += cfg.dt * forcing.stflx    # (step3d_t_ISO.F:956-959)
         if src_t is not None:
             t_rhs[cfg.itemp] += src_t
