@@ -9,7 +9,7 @@ real-data cases through `Experiment.run`, the command line through
 `roms_tpu_torch.__main__.main`, the rank mesh through
 `driver.run_distributed` and `Experiment.run_distributed`), in phases;
 each prints its own lines and the first failure raises, so the exit code
-is nonzero (the whole script takes about 8 minutes on an H100):
+is nonzero (the whole script takes about 10 minutes on an H100):
 
   0. device: a CUDA device is required; prints its name and the
      `nvidia-smi` name/power limit line; TF32 off.
@@ -125,24 +125,31 @@ is nonzero (the whole script takes about 8 minutes on an H100):
      mesh runs gloo ranks on cuda:0, their halo strips staged through
      pinned host memory): (a) NCCL, a world of one: production 48x32x16
      nt=4 f64, 3 steps through `driver.run_distributed` on the 1x1 mesh,
-     every field and row bitwise equal to `driver.run` on the card,
-     launches as phase 4; (b) 2x2 gloo ranks: the same case without
-     options, with the budgets and the upscale capture, at 49x33 (padded
-     onto the mesh), and with mCDR point releases and a 3-argument bulk
-     forcing hook (the releases made block-local, the hook reading the
-     gathered surface view), 3 steps each against the single block on
-     the card (the fields tests/test_distributed.py compares and every
-     other array at 1e-12 * max(1, max|ref|), the conditioned arrays and
-     the strips at 1e-8, the tracer budget's terms at 1e-8 of their own
-     largest value, as tests/test_torch_dist.py), the last diag row
-     bitwise `compute_diag`'s of the gathered state, every rank's
-     launches; the distributed particle step bitwise `advance_particles`;
-     (c) Flux_frc in f64 through `Experiment.run_distributed`, 20 steps
-     against its oracle and mass oracle (phase 9's tolerances); (d)
-     production 384x192x60 nt=34 f32 on 2x2 ranks, 1 warm-up + 3 timed
-     steps, finite: ms/step of the slowest rank, each rank's peak memory
-     and the host ms of one 3D and one 2D exchange (four ranks sharing
-     one card: not a scaling number).
+     without options and with phase 14's NH set, every field and row
+     bitwise equal to `driver.run` on the card, launches as phase 4; (b)
+     2x2 gloo ranks: the same case without options, with the budgets and
+     the upscale capture, at 49x33 (padded onto the mesh), with mCDR
+     point releases and a 3-argument bulk forcing hook (the releases made
+     block-local, the hook reading the gathered surface view), and with
+     the NH set at 20 PCG iterations at 48x32 and 49x33 (the projection
+     one global PCG over the ranks), 3 steps each against the single
+     block on the card (the fields tests/test_distributed.py compares and
+     every other array at 1e-12 * max(1, max|ref|), 1e-11 with the
+     projection, the conditioned arrays and the strips at 1e-8, the
+     tracer budget's terms at 1e-8 of their own largest value, as
+     tests/test_torch_dist.py), the last diag row bitwise
+     `compute_diag`'s of the gathered state, every rank's launches; the
+     distributed particle step bitwise `advance_particles`; (c) Flux_frc
+     in f64 through `Experiment.run_distributed`, 20 steps against its
+     oracle and mass oracle (phase 9's tolerances); (d) production
+     384x192x60 nt=34 f32 on 2x2 ranks, 1 warm-up + 3 timed steps,
+     finite: ms/step of the slowest rank, each rank's peak memory in the
+     steps and in the global set-up before the block cut, and the host
+     ms of one 3D and one 2D exchange; then the same with the NH set:
+     ms/step, the last step's res/res0 beside 14c-i's, and one projection
+     on each rank's block: its ms, its halo exchanges and all-reduces
+     with their ms, and the messages it stages through the host (four
+     ranks sharing one card: not a scaling number).
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after, in phase 15 on every rank (phase
@@ -1598,6 +1605,8 @@ def phase_output(device, workdir):
 OPTION_SETS = (("i", "nh"), ("ii", "iso"))
 OUTPUTS = ("upscale", "t_budget", "uv_budget")
 PARTICLES = 1_000_000
+# the last step's NH res/res0 of 14c-i, printed beside 15d's
+NH_RES = {}
 
 
 def compare_outputs(got, ref, what, loose):
@@ -1791,6 +1800,7 @@ def phase_nh_full_width(device, workdir, warm=1, nsteps=3):
         nhmg.nh_solve = solve
     torch.cuda.synchronize()
     ps, grid, nh = box["ps"], box["grid"], box["nh"]
+    NH_RES["14c"] = float(nh.res / nh.res0)
     adv_ms = [e0.elapsed_time(e1) for e0, e1 in box["events"][warm:]]
     if not (bool(torch.isfinite(nh.res).item())
             and bool(torch.isfinite(ps.px[ps.active]).all())):
@@ -1909,7 +1919,9 @@ def phase_options(device, workdir):
 # mesh runs four gloo ranks on cuda:0, their halo strips staged through
 # pinned host memory (15b-15d).  The ranks are spawned processes
 # (`parallel.dist.launch`); each reads its own kernels' launch counts and
-# returns its numbers, which this process prints and checks.
+# returns its numbers, which this process prints and checks.  The
+# non-hydrostatic projection runs on the mesh as one global PCG (15a,
+# 15b's "nh" cases, 15d).
 MESH_CASE = dict(nx=48, ny=32, nz=16, nt=4)
 MESH_OPTIONS = dict(tracer_diagnostics=True, uv_diagnostics=True,
                     upscale_output=True)
@@ -1920,8 +1932,18 @@ MESH_TOL = 1e-12
 MESH_BUDGET_TOL = 1e-8
 # 15b's cases: (tag, nx, ny, flags); "cdr_bulk" adds mCDR point releases
 # and a 3-argument bulk-forcing hook (`production_forced`)
+# phase 14's NH set, bench_production.OPTIONS["nh"] (phase_mesh checks
+# that they agree); 15b's projection cases run it at MESH_NH_ITERS PCG
+# iterations and hold every array not conditioned at MESH_NH_TOL: the
+# mesh's global PCG against the single block's, whose readings are 1e-14
+# to 1e-12 * scale on the card
+NH_SET = dict(non_hydrostatic=True, uv_diagnostics=True)
+MESH_NH_ITERS = 20
+MESH_NH_TOL = 1e-11
+MESH_NH = dict(NH_SET, nh_iters=MESH_NH_ITERS)
 MESH_TAGS = (("plain", 48, 32, {}), ("options", 48, 32, MESH_OPTIONS),
-             ("49x33", 49, 33, {}), ("cdr_bulk", 48, 32, {}))
+             ("49x33", 49, 33, {}), ("cdr_bulk", 48, 32, {}),
+             ("nh", 48, 32, MESH_NH), ("49x33_nh", 49, 33, MESH_NH))
 # padded-global (j, i) release cells on 48x32, whose 2x2 blocks hold
 # interior rows 2..17 | 18..33 and columns 2..25 | 26..49: inside each
 # block, on both sides of the block boundaries and at their corner, two in
@@ -1945,10 +1967,10 @@ def flat_tree(d, pre=""):
     return out
 
 
-def mesh_compare(got, ref, what):
+def mesh_compare(got, ref, what, tol=MESH_TOL):
     """A 2x2 run's gathered state against the single block's on the card:
     the fields tests/test_distributed.py compares and every other array at
-    MESH_TOL * max(1, max|ref|) over the interior; the arrays
+    tol * max(1, max|ref|) over the interior; the arrays
     bench_production.CONDITIONED_TOL or OPTION_CONDITIONED_TOL names and
     the boundary strips (face volume fluxes times a tracer) at 1e-8; the
     momentum terms on the reference's update range; the tracer budget's
@@ -1972,16 +1994,16 @@ def mesh_compare(got, ref, what):
               (Ellipsis, slice(h, -h), slice(h, -h)))
         a, b = a[sl], got[name][sl]
         if name.startswith("t_budget."):
-            scale, tol = float(np.abs(a).max()), MESH_BUDGET_TOL
+            scale, bound = float(np.abs(a).max()), MESH_BUDGET_TOL
         else:
             scale = max(1.0, float(np.abs(a).max()))
-            tol = 1e-8 if (name in loose or name.startswith("upscale.")) \
-                else MESH_TOL
+            bound = 1e-8 if (name in loose or name.startswith("upscale.")) \
+                else tol
         err = float(np.abs(b - a).max()) / scale
         errs[name] = err
-        if not np.isfinite(b).all() or not err <= tol:
+        if not np.isfinite(b).all() or not err <= bound:
             raise AssertionError(f"{what}: {name} differs by {err:.3e} "
-                                 f"(bound {tol:.0e})")
+                                 f"(bound {bound:.0e})")
     return errs
 
 
@@ -2059,26 +2081,34 @@ def gathered_diag(state_np, grid, cfg):
     return [float(d.avke), float(d.avke2b), float(d.cu_adv), float(d.cu_w)]
 
 
+# 15a's runs: without options, and with phase 14's NH set (the
+# projection with the mesh's halo refresh and world sum)
+MESH_15A = (("plain", {}), ("nh", NH_SET))
+
+
 def rank_15a(mesh):
     """A world of one on NCCL: run_distributed on the 1x1 mesh against
-    driver.run on the same card, every field and row bitwise."""
+    driver.run on the same card, every field and row bitwise, for each
+    flag set of MESH_15A."""
     import torch.distributed as tdist
     from roms_tpu_torch import bridge
     from roms_tpu_torch.driver import run, run_distributed
     one = torch.ones(1, device=mesh.device)
     tdist.all_reduce(one)           # NCCL itself, on a world of one
-    cfg, grid, st, frc = production_f64(mesh.device)
-    reset_counts()
-    sd, rows_d = run_distributed(grid, st, frc, cfg, mesh, nsteps=3)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    s1, rows_1 = run(grid, st, frc, cfg, nsteps=3)
-    a, b = flat_tree(bridge.to_numpy(s1)), flat_tree(bridge.to_numpy(sd))
-    differ = [k for k in a if not np.array_equal(a[k], b[k])]
-    return {"counts": counts, "differ": differ, "fields": len(a),
-            "rows_equal": bool(np.array_equal(rows_d, rows_1)),
-            "nccl": float(one), "backend": mesh.backend,
-            "shape": mesh.shape}
+    out = {"nccl": float(one), "backend": mesh.backend, "shape": mesh.shape}
+    for tag, flags in MESH_15A:
+        cfg, grid, st, frc = production_f64(mesh.device, **flags)
+        reset_counts()
+        sd, rows_d = run_distributed(grid, st, frc, cfg, mesh, nsteps=3)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        s1, rows_1 = run(grid, st, frc, cfg, nsteps=3)
+        a, b = flat_tree(bridge.to_numpy(s1)), flat_tree(bridge.to_numpy(sd))
+        out[tag] = {"counts": counts, "fields": len(a),
+                    "differ": [k for k in a if not np.array_equal(a[k],
+                                                                  b[k])],
+                    "rows_equal": bool(np.array_equal(rows_d, rows_1))}
+    return out
 
 
 def rank_15(mesh, infile):
@@ -2116,6 +2146,7 @@ def rank_15(mesh, infile):
     out["15c_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["15d"] = mesh_full_width(mesh)
+    out["15d_nh"] = mesh_full_width(mesh, nh=True)
     out["15d_s"] = time.perf_counter() - t0
     return out
 
@@ -2180,11 +2211,15 @@ def mesh_flux_frc(mesh, infile, nsteps=20):
             "shape": (exp.cfg.nx, exp.cfg.ny, exp.cfg.nz, exp.cfg.nt)}
 
 
-def mesh_full_width(mesh, warm=1, nsteps=3):
+def mesh_full_width(mesh, nh=False, warm=1, nsteps=3):
     """15d: production 384x192x60 nt=34 f32 on this rank's block: ms/step
-    (each rank synchronised, then a barrier), peak memory, the host ms of
-    one 3D and one 2D exchange."""
+    (each rank synchronised, then a barrier), the peak memory of the
+    global set-up (every rank builds the whole state, then cuts its
+    block) and of the steps on the block alone; without the
+    projection, the host ms of one 3D and one 2D exchange; with phase 14's
+    NH set (`nh`), the last step's res/res0 and `mesh_projection`."""
     import torch.distributed as tdist
+    from roms_tpu_torch import nhmg
     from roms_tpu_torch.cases import bench_production
     from roms_tpu_torch.ops.weights import set_weights
     from roms_tpu_torch.parallel.dist import make_distributed_step, to_block
@@ -2192,7 +2227,9 @@ def mesh_full_width(mesh, warm=1, nsteps=3):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = bench_production.config(**MESH_FULL)
+    cfg = bench_production.config(**MESH_FULL).replace(
+        **(bench_production.OPTIONS["nh"] if nh else {}))
+    what = f"15d{' NH' if nh else ''} rank {mesh.rank}"
     grid, st, frc = bench_production.setup(cfg, dtype=torch.float32,
                                            device=mesh.device)
     h = cfg.halo
@@ -2200,21 +2237,42 @@ def mesh_full_width(mesh, warm=1, nsteps=3):
     grid = to_block(grid, mesh, h)
     gc.collect()
     torch.cuda.empty_cache()
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     w1, w2, _ = set_weights(cfg.ndtfast)
     step = make_distributed_step(cfg, mesh)
-    reset_counts()
-    for i in range(warm + nsteps):
-        if i == warm:
-            torch.cuda.synchronize()
-            tdist.barrier()
-            t0 = time.perf_counter()
-        st = step(st, frc, grid, w1, w2, first_step=(i == 0))
-    torch.cuda.synchronize()
-    tdist.barrier()
-    ms = 1e3 * (time.perf_counter() - t0) / nsteps
-    counts = read_counts()
-    check_counts(counts, warm + nsteps, cfg, f"15d rank {mesh.rank}")
-    check_finite(st, f"15d rank {mesh.rank}")
+    solve, box = nhmg.nh_solve, {}
+
+    def keep(*a, **k):
+        box["nh"] = solve(*a, **k)
+        return box["nh"]
+    nhmg.nh_solve = keep
+    try:
+        reset_counts()
+        for i in range(warm + nsteps):
+            if i == warm:
+                torch.cuda.synchronize()
+                tdist.barrier()
+                t0 = time.perf_counter()
+            st = step(st, frc, grid, w1, w2, first_step=(i == 0))
+        torch.cuda.synchronize()
+        tdist.barrier()
+        ms = 1e3 * (time.perf_counter() - t0) / nsteps
+        counts = read_counts()
+    finally:
+        nhmg.nh_solve = solve
+    check_counts(counts, warm + nsteps, cfg, what)
+    check_finite(st, what)
+    out = {"ms": ms, "counts": counts, "setup_peak": setup_peak,
+           "peak": torch.cuda.max_memory_allocated() / 2**30,
+           "block": tuple(st.zeta.shape)}
+    if nh:
+        res = float(box["nh"].res / box["nh"].res0)
+        if not np.isfinite(res):
+            raise AssertionError(f"{what}: NH res/res0 {res}")
+        out["res"], out["iters"] = res, cfg.nh_iters
+        out["projection"] = mesh_projection(mesh, cfg, st, grid)
+        return out
     halo = HaloExchange(mesh, cfg.halo, cfg.ew_periodic, cfg.ns_periodic)
     ex = {}
     for name, a in (("3d", st.u), ("2d", st.zeta)):
@@ -2225,31 +2283,116 @@ def mesh_full_width(mesh, warm=1, nsteps=3):
             halo(a)
         torch.cuda.synchronize()
         ex[name] = 1e3 * (time.perf_counter() - t0) / 10
-    return {"ms": ms, "counts": counts, "ex": ex,
-            "peak": torch.cuda.max_memory_allocated() / 2**30,
-            "block": tuple(st.zeta.shape)}
+    out["ex"] = ex
+    return out
+
+
+class CountedHalo:
+    """A rank's halo refresh and world sum, each call counted and its host
+    ms taken with the stream synchronised before and after."""
+
+    def __init__(self, halo):
+        self.halo = halo
+        self.n = {"exchange": 0, "all_reduce": 0}
+        self.ms = {"exchange": 0.0, "all_reduce": 0.0}
+
+    def _timed(self, kind, fn, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(a)
+        torch.cuda.synchronize()
+        self.ms[kind] += 1e3 * (time.perf_counter() - t0)
+        self.n[kind] += 1
+        return out
+
+    def __call__(self, a):
+        return self._timed("exchange", self.halo, a)
+
+    def world_sum(self, t):
+        return self._timed("all_reduce", self.halo.world_sum, t)
+
+
+def mesh_projection(mesh, cfg, st, grid_b, reps=3):
+    """15d with NH: one projection of this rank's block of the final state
+    with the step's halo refresh and world sum: its host ms (median of
+    reps, the ranks started together, the stream synchronised); then one
+    more, counted: the halo exchanges and all-reduces it makes, the host
+    ms in each kind, and the messages staged through pinned host memory
+    (gloo on the card: each copy waits for the stream); and the host ms
+    of one all-reduce of two numbers alone (mean of 20, the ranks started
+    together), beside which the counted ones show the waits for the other
+    ranks."""
+    import torch.distributed as tdist
+    from roms_tpu_torch import nhmg
+    from roms_tpu_torch.parallel.dist import _with_ownership, pad_for_mesh
+    from roms_tpu_torch.parallel.halo import HaloExchange
+    halo = HaloExchange(mesh, cfg.halo, cfg.ew_periodic, cfg.ns_periodic)
+    grid = _with_ownership(grid_b, pad_for_mesh(cfg, mesh), mesh)
+    w0 = torch.zeros((cfg.nz + 1,) + tuple(st.u.shape[1:]),
+                     dtype=st.u.dtype, device=st.u.device)
+
+    def solve(h):
+        return nhmg.nh_solve(st.u, st.v, w0, st.hz, st.z_r, grid.pm,
+                             grid.pn, grid, cfg, halo=h)
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        solve(halo)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counted, staged = CountedHalo(halo), [0]
+
+    def send_buffer(t, send=mesh._send_buffer):
+        buf = send(t)
+        staged[0] += buf.device != t.device
+        return buf
+    mesh._send_buffer = send_buffer
+    try:
+        solve(counted)
+    finally:
+        del mesh._send_buffer
+    two = torch.zeros(2, dtype=st.u.dtype, device=st.u.device)
+    halo.world_sum(two)
+    torch.cuda.synchronize()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        halo.world_sum(two)
+    torch.cuda.synchronize()
+    alone = 1e3 * (time.perf_counter() - t0) / 20
+    return {"ms": float(np.median(ms)), "n": counted.n, "in_ms": counted.ms,
+            "staged": staged[0], "all_reduce_alone_ms": alone}
 
 
 def phase_mesh(device, workdir, smi):
-    from roms_tpu_torch.cases import flux_frc, uswc
+    from roms_tpu_torch.cases import bench_production, flux_frc, uswc
     from roms_tpu_torch.driver import run
     from roms_tpu_torch.ops import _build
     from roms_tpu_torch.parallel.dist import launch
+    if NH_SET != bench_production.OPTIONS["nh"]:
+        raise AssertionError(f"NH_SET {NH_SET} is not phase 14's NH set")
     _build.build()          # once, before any rank needs the library
     t0 = time.perf_counter()
     (a,) = launch(rank_15a, 1, "nccl", "cuda", timeout=300.0)
     expected = (2 * 3, 4 * 3, 2 * 3)
-    if a["differ"] or not a["rows_equal"] or a["counts"] != expected \
-            or a["nccl"] != 1.0 or a["backend"] != "nccl":
-        raise AssertionError(f"15a: NCCL 1x1 against driver.run: fields "
-                             f"differ {a['differ']}, rows equal "
-                             f"{a['rows_equal']}, launches {a['counts']} "
-                             f"(expected {expected})")
-    say(f"[15a mesh] NCCL world of one ({a['shape']} mesh), production "
-        f"48x32x16 nt=4 f64, 3 steps: all {a['fields']} state fields and "
-        f"every diag row bitwise equal to driver.run on the card; "
-        f"launches tracer {a['counts'][0]}, solve {a['counts'][1]}, kpp "
-        f"{a['counts'][2]} ({time.perf_counter() - t0:.1f} s)")
+    for tag, _ in MESH_15A:
+        r = a[tag]
+        if r["differ"] or not r["rows_equal"] or r["counts"] != expected \
+                or a["nccl"] != 1.0 or a["backend"] != "nccl":
+            raise AssertionError(
+                f"15a {tag}: NCCL 1x1 against driver.run: fields differ "
+                f"{r['differ']}, rows equal {r['rows_equal']}, launches "
+                f"{r['counts']} (expected {expected})")
+        extra = " with the NH projection and the momentum budget" \
+            if tag == "nh" else ""
+        say(f"[15a mesh] NCCL world of one ({a['shape']} mesh), production "
+            f"48x32x16 nt=4 f64{extra}, 3 steps: all {r['fields']} state "
+            f"fields and every diag row bitwise equal to driver.run on the "
+            f"card; launches tracer "
+            f"{r['counts'][0]}, solve {r['counts'][1]}, kpp {r['counts'][2]}")
+    say(f"[15a mesh] {time.perf_counter() - t0:.1f} s")
 
     # the single-block references on this card
     from roms_tpu_torch import bridge
@@ -2270,7 +2413,9 @@ def phase_mesh(device, workdir, smi):
                   timeout=900.0)
     wall = time.perf_counter() - t0
     for tag, (ref, rows1) in refs.items():
-        errs = mesh_compare(outs[0][tag]["state"], ref, f"15b {tag}")
+        nh = tag.endswith("nh")
+        errs = mesh_compare(outs[0][tag]["state"], ref, f"15b {tag}",
+                            tol=MESH_NH_TOL if nh else MESH_TOL)
         for r, o in enumerate(outs):
             if not o[tag]["diag_bitwise"]:
                 raise AssertionError(f"15b {tag} rank {r}: the last diag "
@@ -2282,11 +2427,14 @@ def phase_mesh(device, workdir, smi):
         e_rows = float(np.max(np.abs(rows[:, 1:4] - rows1[:, 1:4])
                               / np.abs(rows1[:, 1:4]).clip(1e-300)))
         extra = {"options": "budgets+upscale ",
-                 "cdr_bulk": "mCDR releases+bulk hook "}.get(tag, "")
+                 "cdr_bulk": "mCDR releases+bulk hook "}.get(
+                     tag, f"NH ({MESH_NH_ITERS} PCG iterations)+momentum "
+                     f"budget " if nh else "")
         say(f"[15b mesh] 2x2 gloo ranks on one card, production "
-            f"{'49x33' if tag == '49x33' else '48x32'}x16 nt=4 f64 "
+            f"{'49x33' if tag.startswith('49x33') else '48x32'}x16 nt=4 f64 "
             f"{extra}3 steps "
-            f"against the single block on the card: {mesh_text(errs)}; "
+            f"against the single block on the card: {mesh_text(errs)}"
+            f"{f' (bound {MESH_NH_TOL:.0e})' if nh else ''}; "
             f"last diag row bitwise compute_diag's of the gathered state on "
             f"every rank, rows {e_rows:.3e} from the single block's; "
             f"launches a rank (tracer, solve, kpp) "
@@ -2325,20 +2473,60 @@ def phase_mesh(device, workdir, smi):
                                                for o in outs)
         + f"; 15c {max(o['15c_s'] for o in outs):.1f} s")
 
+    mesh_nh_text(outs, smi)
     d = [o["15d"] for o in outs]
     say(f"[15d mesh] production {MESH_FULL['nx']}x{MESH_FULL['ny']}x"
         f"{MESH_FULL['nz']} nt={MESH_FULL['nt']} f32 on 2x2 ranks "
         f"(blocks {d[0]['block']}), 1 warm-up + 3 timed steps, finite: "
         f"{max(x['ms'] for x in d):.3f} ms/step (slowest rank; ranks "
         + " ".join(f"{x['ms']:.3f}" for x in d)
-        + "), peak memory a rank " + " ".join(f"{x['peak']:.3f}" for x in d)
-        + " GiB, one exchange 3D (u) "
+        + "), " + mesh_peaks(d) + ", one exchange 3D (u) "
         + " ".join(f"{x['ex']['3d']:.3f}" for x in d) + " ms, 2D (zeta) "
         + " ".join(f"{x['ex']['2d']:.3f}" for x in d)
         + f" ms host time; launches a rank {d[0]['counts']}; four ranks "
         f"sharing one card with the halos staged through the host: not a "
         f"scaling number; {smi}; 15d "
         f"{max(o['15d_s'] for o in outs):.1f} s, the launch {wall:.1f} s")
+
+
+def mesh_peaks(d):
+    """15d's peak memory a rank: the steps' and the global set-up's."""
+    return ("peak memory a rank in the steps "
+            + " ".join(f"{x['peak']:.3f}" for x in d)
+            + " GiB (the global set-up before the block cut "
+            + " ".join(f"{x['setup_peak']:.3f}" for x in d) + " GiB)")
+
+
+def mesh_nh_text(outs, smi):
+    """15d with NH: its numbers from every rank, printed."""
+    d = [o["15d_nh"] for o in outs]
+    pr = [x["projection"] for x in d]
+    n = pr[0]["n"]
+    if any(p["n"] != n for p in pr):
+        raise AssertionError(f"15d NH: ranks made different collectives "
+                             f"{[p['n'] for p in pr]}")
+    single = NH_RES.get("14c")
+    say(f"[15d mesh NH] production {MESH_FULL['nx']}x{MESH_FULL['ny']}x"
+        f"{MESH_FULL['nz']} nt={MESH_FULL['nt']} f32 with the NH projection "
+        f"and the momentum budget on 2x2 gloo ranks sharing one card, 1 "
+        f"warm-up + 3 timed steps, finite: "
+        f"{max(x['ms'] for x in d):.3f} ms/step (slowest rank; ranks "
+        + " ".join(f"{x['ms']:.3f}" for x in d)
+        + f"; 15d without NH below); one projection "
+        f"{max(p['ms'] for p in pr):.3f} ms (slowest rank; ranks "
+        + " ".join(f"{p['ms']:.3f}" for p in pr)
+        + f") with {n['exchange']} halo exchanges ("
+        + " ".join(f"{p['in_ms']['exchange']:.3f}" for p in pr)
+        + f" ms a rank) and {n['all_reduce']} all-reduces ("
+        + " ".join(f"{p['in_ms']['all_reduce']:.3f}" for p in pr)
+        + " ms a rank; one alone "
+        + " ".join(f"{p['all_reduce_alone_ms']:.3f}" for p in pr)
+        + f" ms), {pr[0]['staged']} messages staged through pinned "
+        f"host memory a rank (each waits for the stream); last step's "
+        f"res/res0 {d[0]['res']:.6e} ({d[0]['block']} blocks, "
+        f"{d[0]['iters']} PCG iterations; the single block in 14c-i "
+        + ("not run" if single is None else f"{single:.6e}")
+        + "); " + mesh_peaks(d) + f"; launches a rank {d[0]['counts']}; {smi}")
 
 
 def main():

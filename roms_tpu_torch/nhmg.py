@@ -18,6 +18,24 @@ once the residual falls to 1e-13 of its start, with `torch.where` and no
 read of the residual on the host.  The clamps of the two divisions at
 1e-300 are 0 in float32, as in the JAX package.
 
+On a rank mesh (`parallel.dist`) the projection is one global problem,
+as the reference's NHMG solves it with MPI halo exchanges
+(NHMG/src/nhmg.f90), and its result is the single block's to
+round-off.  Global: the walls, put only at the physical edges a block
+owns (the east/north one `pad_e`/`pad_n` cells inside a padded block,
+as ops/bc.py places it), so faces across a shared edge stay active; and
+every dot product, each block's sum over its own cells added over the
+ranks.  Per column, with no communication: the line preconditioner.
+The operator reads its argument one cell beyond the block, so each
+iteration makes one halo refresh (of the search direction) and two
+world sums (one of d.Ad; one of r.z and r.r together); the solve adds
+one refresh of (u, v) for the right-hand side, one world sum of two
+numbers at the start and one refresh of p for the correction: n_iter + 2
+refreshes and 2 n_iter + 1 sums.  Every rank makes them in the same
+order whatever its residual.  The JAX package's own mesh step solves one
+problem a block instead (ROADMAP Queue 3); the port holds its mesh
+projection to the JAX package's single-device one.
+
 Remaining deviation (the JAX package's, documented there): w is not
 prognostic.  The step passes a zero trial w and discards nh.w, so the
 non-divergence holds for (u, v, nh.w), not for (u, v) with the model's
@@ -31,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from roms_tpu_torch.config import ModelConfig
+from roms_tpu_torch.parallel.halo import halo_group
 
 
 class NHResult(NamedTuple):
@@ -59,9 +78,33 @@ def _north(a):
     return torch.roll(a, -1, dims=-2)
 
 
-def _coefficients(hz, z_r, pm, pn, umask, vmask, cfg: ModelConfig):
+def _owned(flag) -> bool:
+    """An edge-ownership flag (None on a single block) as a bool."""
+    return flag is None or bool(flag)
+
+
+def _span(n: int, own_lo, own_hi, pad: int, device):
+    """One axis of a block of n points: (cells, faces, own) as bool
+    vectors.  cells: the physical interior the block holds, halo included;
+    a wall stands only at an edge the block owns, below index 2 and above
+    n - 3 - pad (the high edge's block holds the mesh-divisibility pad
+    beyond the physical edge, ops/bc.py:_Ax), and across a shared edge the
+    halo cells are interior.
+    faces: index i, between cells i-1 and i, active between two interior
+    cells.  own: the interior cells in the block's own range [2, n-2)."""
+    i = torch.arange(n, device=device)
+    lo = 2 if _owned(own_lo) else 0
+    hi = n - 3 - pad if _owned(own_hi) else n - 1
+    cells = (i >= lo) & (i <= hi)
+    return cells, (i >= lo + 1) & (i <= hi), cells & (i >= 2) & (i <= n - 3)
+
+
+def _coefficients(hz, z_r, pm, pn, umask, vmask, cfg: ModelConfig,
+                  grid=None):
     """Face coefficients of the Poisson operator, zeroed outside the
-    interior and at land and wall faces."""
+    interior and at land and wall faces; the cell mask (where G and G^T
+    are evaluated) and the owned interior (`_span`, from the grid's edge
+    ownership; the whole interior on a single block)."""
     jy, ix = pm.shape
     dx = 1.0 / pm
     dy = 1.0 / pn
@@ -73,12 +116,14 @@ def _coefficients(hz, z_r, pm, pn, umask, vmask, cfg: ModelConfig):
     dx_v = 0.5 * (dx + _south(dx))
     pn_v = 0.5 * (pn + _south(pn))
 
-    ii = torch.arange(ix, device=pm.device)[None, :]
-    jj = torch.arange(jy, device=pm.device)[:, None]
-    # interior cells are [2:-2]; active u faces 3..ix-3 (between interior
-    # cells), walls (faces 2 and ix-2) carry zero flux
-    face_u = ((ii >= 3) & (ii <= ix - 3) & (jj >= 2) & (jj <= jy - 3))
-    face_v = ((jj >= 3) & (jj <= jy - 3) & (ii >= 2) & (ii <= ix - 3))
+    cx, fx, ox = _span(ix, getattr(grid, "own_w", None),
+                       getattr(grid, "own_e", None), cfg.pad_e, pm.device)
+    cy, fy, oy = _span(jy, getattr(grid, "own_s", None),
+                       getattr(grid, "own_n", None), cfg.pad_n, pm.device)
+    # on a single block: interior cells [2:-2], active u faces 3..ix-3
+    # (between interior cells), walls (faces 2 and ix-2) carry zero flux
+    face_u = fx[None, :] & cy[:, None]
+    face_v = fy[:, None] & cx[None, :]
     mu = face_u.to(hz.dtype) * (umask if umask is not None else 1.0)
     mv = face_v.to(hz.dtype) * (vmask if vmask is not None else 1.0)
 
@@ -88,8 +133,9 @@ def _coefficients(hz, z_r, pm, pn, umask, vmask, cfg: ModelConfig):
     dz_w = z_r[1:] - z_r[:-1]                    # (nz-1, jy, ix)
     aw_int = dA[None] / dz_w                     # interior z faces 1..nz-1
     aw_top = dA / (0.5 * hz[-1])                 # Dirichlet p=0 at surface
-    cell = ((ii >= 2) & (ii <= ix - 3) & (jj >= 2) & (jj <= jy - 3))
-    return au, av, aw_int, aw_top, dA, cell.to(hz.dtype)
+    cell = (cy[:, None] & cx[None, :]).to(hz.dtype)
+    own = (oy[:, None] & ox[None, :]).to(hz.dtype)
+    return au, av, aw_int, aw_top, dA, cell, own
 
 
 class _Geometry(NamedTuple):
@@ -98,7 +144,8 @@ class _Geometry(NamedTuple):
     aw_int: torch.Tensor
     aw_top: torch.Tensor
     dA: torch.Tensor
-    cell: torch.Tensor
+    cell: torch.Tensor    # where G and G^T are evaluated
+    own: torch.Tensor     # the owned interior: b, r, z, Ad and the dots
     area_u: torch.Tensor  # hz_u*dy_u * face mask (area only)
     area_v: torch.Tensor
     pm_u: torch.Tensor
@@ -112,9 +159,10 @@ class _Geometry(NamedTuple):
     sigma: bool
 
 
-def _geometry(hz, z_r, pm, pn, umask, vmask, cfg: ModelConfig) -> _Geometry:
-    au, av, aw_int, aw_top, dA, cell = _coefficients(
-        hz, z_r, pm, pn, umask, vmask, cfg)
+def _geometry(hz, z_r, pm, pn, umask, vmask, cfg: ModelConfig,
+              grid=None) -> _Geometry:
+    au, av, aw_int, aw_top, dA, cell, own = _coefficients(
+        hz, z_r, pm, pn, umask, vmask, cfg, grid)
     pm_u = 0.5 * (pm + _west(pm))
     pn_v = 0.5 * (pn + _south(pn))
     mu = (au > 0.0).to(hz.dtype)
@@ -126,7 +174,7 @@ def _geometry(hz, z_r, pm, pn, umask, vmask, cfg: ModelConfig) -> _Geometry:
     zx_u = (z_r - _west(z_r)) * pm_u[None] * mu
     zy_v = (z_r - _south(z_r)) * pn_v[None] * mv
     return _Geometry(au=au, av=av, aw_int=aw_int, aw_top=aw_top, dA=dA,
-                     cell=cell, area_u=area_u, area_v=area_v,
+                     cell=cell, own=own, area_u=area_u, area_v=area_v,
                      pm_u=pm_u, pn_v=pn_v, zx_u=zx_u, zy_v=zy_v,
                      dz_w=z_r[1:] - z_r[:-1], hz_top=hz[-1], mu=mu, mv=mv,
                      sigma=bool(cfg.nh_sigma_terms))
@@ -232,44 +280,65 @@ def _masks(grid, cfg: ModelConfig):
     return getattr(grid, "umask", None), getattr(grid, "vmask", None)
 
 
+def _identity(a):
+    return a
+
+
 def nh_solve(u, v, w, hz, z_r, pm, pn, grid, cfg: ModelConfig,
-             n_iter: int | None = None) -> NHResult:
+             n_iter: int | None = None, halo=None) -> NHResult:
     """Project (u, v, w) onto a discretely non-divergent field.
 
     u/v: (nz, jy, ix) at u/v points; w: (nz+1, jy, ix) at w points (w[0]
     the floor, w[nz] the surface).  Returns the corrected fields and the
-    residual norms (reference: nhmg_solve, NHMG/src/nhmg.f90)."""
+    residual norms (reference: nhmg_solve, NHMG/src/nhmg.f90).
+
+    On a rank mesh: the arrays are the rank's block, `grid` carries its
+    edge ownership and `halo` is its halo refresh (a `HaloExchange`:
+    called, it refreshes an array; its `world_sum` adds a small tensor
+    over the ranks); the result is the global projection's on the block's
+    own cells and faces (the halo's are left for the caller's refresh).
+    Without it (a single block) there is no refresh and the sums are the
+    block's own."""
     if n_iter is None:
         n_iter = cfg.nh_iters
     umask, vmask = _masks(grid, cfg)
-    geo = _geometry(hz, z_r, pm, pn, umask, vmask, cfg)
-    au, av, aw_int, aw_top, cell = (geo.au, geo.av, geo.aw_int,
-                                    geo.aw_top, geo.cell)
+    geo = _geometry(hz, z_r, pm, pn, umask, vmask, cfg, grid)
+    au, av, aw_int, aw_top, own = (geo.au, geo.av, geo.aw_int,
+                                   geo.aw_top, geo.own)
     aw_f = _aw_faces(geo)
+    refresh = _identity if halo is None else halo
 
     def a_pos(x):
-        gx, gy, gz = _gradient(x, geo)
+        gx, gy, gz = _gradient(refresh(x), geo)
         return _gradient_t(geo.area_u * gx, geo.area_v * gy, aw_f * gz,
-                           geo) * cell
+                           geo) * own
 
     def m_pos(x):
-        return -_line_precond(x, au, av, aw_int, aw_top, cell)
+        return -_line_precond(x, au, av, aw_int, aw_top, own)
 
-    def dot(a_, b_):
-        return torch.sum(a_ * b_)
+    def dots(*pairs):
+        """Each pair's dot product: the block's sum over its own cells
+        (zero elsewhere), then on a mesh one world sum for all of them."""
+        sums = [torch.sum(a_ * b_) for a_, b_ in pairs]
+        return sums if halo is None else halo.world_sum(torch.stack(sums))
 
-    # r.h.s. of the normal equations G^T A G p = G^T A U*
+    # r.h.s. of the normal equations G^T A G p = G^T A U*; it reads u and
+    # v one face beyond the block
+    if halo is not None:
+        u_b, v_b = halo_group(halo, u, v)
+    else:
+        u_b, v_b = u, v
     w_f = w.clone()
     w_f[0] = 0.0                                 # no flux through the floor
-    bp = _gradient_t(geo.area_u * u * geo.mu, geo.area_v * v * geo.mv,
-                     aw_f * w_f, geo) * cell
+    bp = _gradient_t(geo.area_u * u_b * geo.mu, geo.area_v * v_b * geo.mv,
+                     aw_f * w_f, geo) * own
 
     p = torch.zeros_like(bp)
     r = bp
     z = m_pos(r)
     d = z
-    rz = dot(r, z)
-    res0 = torch.sqrt(dot(bp, bp))
+    rz, rr = dots((r, z), (bp, bp))
+    res0 = torch.sqrt(rr)
     res = res0
     # freeze the recurrence once converged: CG continued past the
     # round-off floor re-amplifies noise (the JAX package's rtol)
@@ -277,37 +346,44 @@ def nh_solve(u, v, w, hz, z_r, pm, pn, grid, cfg: ModelConfig,
     done = torch.zeros((), dtype=torch.bool, device=bp.device)
     for _ in range(n_iter):
         ad = a_pos(d)
-        alpha = rz / torch.clamp_min(dot(d, ad), 1e-300)
+        (dad,) = dots((d, ad))
+        alpha = rz / torch.clamp_min(dad, 1e-300)
         p_n = p + alpha * d
         r_n = r - alpha * ad
         z = m_pos(r_n)
-        rz_new = dot(r_n, z)
+        rz_new, rr = dots((r_n, z), (r_n, r_n))
         beta = rz_new / torch.clamp_min(rz, 1e-300)
         d_n = z + beta * d
         p = torch.where(done, p, p_n)
         r = torch.where(done, r, r_n)
         d = torch.where(done, d, d_n)
         rz = torch.where(done, rz, rz_new)
-        res = torch.sqrt(dot(r, r))
+        # the norm of the frozen r once done, as the JAX package's
+        # sqrt(dot(r, r)) after the freeze
+        res = torch.where(done, res, torch.sqrt(rr))
         done = done | (res <= rtol * res0)
 
     # correction: U - G p (the same discrete gradient)
-    gx, gy, gz = _gradient(p, geo)
+    gx, gy, gz = _gradient(refresh(p), geo)
     gz[0] = 0.0
     return NHResult(p=p, u=u - gx, v=v - gy, w=w - gz, res0=res0, res=res)
 
 
 def divergence(u, v, w, hz, pm, pn, cfg: ModelConfig, grid=None,
-               z_r=None):
+               z_r=None, halo=None):
     """Tilted-face volume-flux divergence on the discrete operators of the
-    projection (a diagnostic).  With cfg.nh_sigma_terms=False this is the
-    orthogonal divergence."""
+    projection (a diagnostic), on the owned interior.  With
+    cfg.nh_sigma_terms=False this is the orthogonal divergence.  On a
+    rank mesh, `grid` carries the block's edge ownership and `halo`
+    refreshes (u, v) first, as in `nh_solve`."""
     umask, vmask = _masks(grid, cfg)
     if z_r is None:
         z_r = torch.cumsum(hz, dim=0) - 0.5 * hz
-    geo = _geometry(hz, z_r, pm, pn, umask, vmask, cfg)
+    geo = _geometry(hz, z_r, pm, pn, umask, vmask, cfg, grid)
+    if halo is not None:
+        u, v = halo_group(halo, u, v)
     aw_f = _aw_faces(geo)
     w_f = w.clone()
     w_f[0] = 0.0
     return _gradient_t(geo.area_u * u * geo.mu, geo.area_v * v * geo.mv,
-                       aw_f * w_f, geo) * geo.cell
+                       aw_f * w_f, geo) * geo.own

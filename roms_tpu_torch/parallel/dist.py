@@ -632,9 +632,10 @@ def _assemble_locals(out, grid, mesh: Mesh):
 def make_distributed_step(cfg: ModelConfig, mesh: Mesh):
     """This rank's step: (state, forcing, grid, w1, w2, first_step) ->
     state, all in block-halo layout; `step_impl` on the block with
-    `HaloExchange` as the halo refresh, the block's grid given its edge
-    ownership and offsets here (`_with_ownership`).  cfg is the unpadded
-    config."""
+    `HaloExchange` as the halo refresh (its world sum adds the
+    non-hydrostatic projection's dot products over the ranks), the block's
+    grid given its edge ownership and offsets here (`_with_ownership`).
+    cfg is the unpadded config."""
     from roms_tpu_torch.parallel.halo import HaloExchange
     from roms_tpu_torch.stepper import step_impl
 
@@ -642,14 +643,6 @@ def make_distributed_step(cfg: ModelConfig, mesh: Mesh):
     cfg = pad_for_mesh(cfg, mesh)
     if cfg.ny // py < 4 or cfg.nx // px < 4:
         raise ValueError("blocks must be at least 4 points wide")
-    if cfg.non_hydrostatic and mesh.size > 1:
-        # the JAX package's PCG takes block-local dot products and
-        # refreshes no halo between iterations, so under shard_map each
-        # block solves its own problem (tests/jax_dist_nh.py)
-        raise NotImplementedError(
-            "non_hydrostatic on a mesh of more than one block: the JAX "
-            "package's projection is not the global one there (ROADMAP "
-            "Queue 3, 'The NH projection on a mesh')")
     halo = HaloExchange(mesh, cfg.halo, cfg.ew_periodic, cfg.ns_periodic)
 
     def dstep(state, forcing, grid, w1, w2, first_step: bool):

@@ -105,7 +105,8 @@ class HaloExchange:
     outward, as `mixed_fill` does (reference: src/mpi_exchanges.F
     west_msg_exch guards).  An axis of one block exchanges nothing: it
     wraps or ring-fills in the array, so a 1x1 mesh is `periodic_fill` /
-    `mixed_fill` exactly."""
+    `mixed_fill` exactly.  `world_sum` adds a tensor over the ranks: a
+    step that holds a HaloExchange runs on a mesh."""
 
     def __init__(self, mesh, h: int = 2, ew_periodic: bool = True,
                  ns_periodic: bool = True):
@@ -113,6 +114,11 @@ class HaloExchange:
         self.h = h
         self.ew_periodic = ew_periodic
         self.ns_periodic = ns_periodic
+
+    def world_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of a small tensor over every rank of the mesh (the dot
+        products of the non-hydrostatic projection's PCG)."""
+        return self.mesh.all_reduce(t)
 
     def __call__(self, a: torch.Tensor) -> torch.Tensor:
         py, px = self.mesh.shape

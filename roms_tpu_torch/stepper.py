@@ -42,7 +42,7 @@ from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
                                 kinematics, rivers, vmix)
 from roms_tpu_torch.ops import prsgrd as prsgrd_mod
 from roms_tpu_torch.ops.kinematics import hz_u, hz_v
-from roms_tpu_torch.parallel.halo import make_halo_fill, shift
+from roms_tpu_torch.parallel.halo import HaloExchange, make_halo_fill, shift
 from roms_tpu_torch.state import Forcing, OceanState
 
 AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
@@ -408,11 +408,15 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     # JAX package (roms_tpu/stepper.py:435-451), the trial w is zero and
     # nh.w is discarded: w stays diagnostic, so the projection acts as a
     # horizontal-divergence damping (roms_tpu_torch/nhmg.py docstring).
+    # On a rank mesh (a HaloExchange) it is one global solve with the
+    # step's halo refresh and world sum; the halo faces of u_new and v_new
+    # it leaves are refreshed below.
     if cfg.non_hydrostatic:
         w0 = torch.zeros((cfg.nz + 1,) + tuple(u_new.shape[1:]),
                          dtype=u_new.dtype, device=u_new.device)
-        nh = nhmg.nh_solve(u_new, v_new, w0, hz_new, zr_new, grid.pm,
-                           grid.pn, grid, cfg)
+        nh = nhmg.nh_solve(
+            u_new, v_new, w0, hz_new, zr_new, grid.pm, grid.pn, grid, cfg,
+            halo=halo if isinstance(halo, HaloExchange) else None)
         u_new, v_new = nh.u, nh.v
 
     if uv_budget is not None:

@@ -17,10 +17,11 @@ content they are differences of, and against their own largest value).
 
 The projection's PCG (`roms_tpu/nhmg.py:nh_solve`) takes its dot products
 with a plain `jnp.sum` and refreshes no halo between iterations, so under
-`shard_map` each block solves its own problem; where the two runs differ
-beyond 1e-8 the port refuses the projection on a mesh of more than one
-block (`roms_tpu_torch/parallel/dist.py:make_distributed_step`).  The
-step compiles for each of the six runs: a few minutes of CPU.
+`shard_map` each block solves its own problem.  The port solves the global
+one on a mesh instead (dot products summed over the ranks, a halo refresh
+in each iteration: `roms_tpu_torch/nhmg.py`), held to the JAX package's
+single-device projection by tests/test_torch_dist_nh.py.  The step
+compiles for each of the six runs: a few minutes of CPU.
 """
 
 import os
@@ -83,7 +84,8 @@ def main():
                   f"{rel:.3e}", flush=True)
     over = max(worst[True, n] for n in FIELDS)
     print(f"projection on the mesh: largest {over:.3e} -> "
-          + ("differs beyond 1e-8: the port refuses it on a mesh"
+          + ("differs beyond 1e-8: one problem a block (the port's mesh "
+             "projection is the global one)"
              if over > 1e-8 else "agrees within 1e-8"), flush=True)
     _budgets()
 

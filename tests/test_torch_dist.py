@@ -46,10 +46,8 @@ the CPU, in float64, against the port's own single block:
       no hang;
     - `dryrun_multichip(4)` in float32;
     - a rank runs on its card unless asked for the CPU, and a tensor on
-      another kind of device than the rank's raises;
-(c) the non-hydrostatic projection refused on a mesh of more than one
-    block (tests/jax_dist_nh.py: the JAX package's mesh run is 6e-4 off
-    its single run in u after 2 steps), and run on a 1x1 mesh.
+      another kind of device than the rank's raises.
+The non-hydrostatic projection on a mesh: tests/test_torch_dist_nh.py.
 """
 
 import dataclasses
@@ -389,15 +387,6 @@ def test_nan_on_one_rank_fails_every_rank(tmp_path):
 
 def test_dryrun_multichip_four_ranks_f32():
     dist.dryrun_multichip(4, device="cpu", backend="gloo", timeout=TIMEOUT)
-
-
-# ------------------------------------------------------------------ (c)
-def test_non_hydrostatic_refused_on_a_mesh():
-    cfg = bench_production.config(nx=48, ny=32, nz=8, nt=2).replace(
-        non_hydrostatic=True)
-    with pytest.raises(NotImplementedError, match="non_hydrostatic"):
-        dist.make_distributed_step(cfg, dist.Mesh(dist.rank_grid(4)))
-    dist.make_distributed_step(cfg, dist.Mesh(dist.rank_grid(1)))
 
 
 def test_ranks_run_on_the_card_unless_asked(tmp_path):

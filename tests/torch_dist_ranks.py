@@ -1,16 +1,19 @@
 """Rank functions of the port's distributed tests (tests/test_torch_dist.py,
-tests/test_torch_dist_jax.py): each runs in a spawned rank as
-fn(mesh, *args) through `roms_tpu_torch.parallel.dist.launch`, and
-returns numpy arrays and plain values.  This module imports the port
+tests/test_torch_dist_jax.py, tests/test_torch_dist_nh.py): each runs in
+a spawned rank as fn(mesh, *args) through
+`roms_tpu_torch.parallel.dist.launch`, and returns numpy arrays and plain
+values.  This module imports the port
 only, so a rank starts without JAX.  Cases are named by a spec (case,
 config keywords, setup keywords), built in float64 on the CPU by `build`
 in the test and in every rank alike.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
-from roms_tpu_torch import bridge
+from roms_tpu_torch import bridge, nhmg
 from roms_tpu_torch.cases import (bench_production, filament, obc_basin,
                                   rivers_ana)
 from roms_tpu_torch.diag import make_distributed_diag
@@ -67,6 +70,37 @@ def forced(spec):
     _, cfg_kw, _ = spec
     return chip_smoke.production_forced("cpu", nz=cfg_kw["nz"],
                                         nt=cfg_kw["nt"])
+
+
+def run_cases(mesh, specs, nsteps):
+    """`run_case` of each spec in turn: a list of (state, diag rows)."""
+    return [run_case(mesh, spec, nsteps) for spec in specs]
+
+
+def nh_blocks(mesh, cases):
+    """`nhmg.nh_solve` on this rank's block of each case's global arrays,
+    a case being (arrays, cfg, n_iter): arrays a dict of numpy u, v, w,
+    hz, z_r, pm, pn and, with cfg.masking, umask and vmask.  The solve gets
+    the block's edge ownership, the mesh's halo refresh and world sum;
+    then `nhmg.divergence` of its result on the block.  Returns, a case,
+    (the joined p, u, v, w and divergence; res0; res)."""
+    py, px = mesh.shape
+    out = []
+    for arrays, cfg, n_iter in cases:
+        b = to_block({k: torch.as_tensor(a) for k, a in arrays.items()},
+                     mesh, H)
+        grid = SimpleNamespace(umask=b.get("umask"), vmask=b.get("vmask"),
+                               own_w=mesh.ix == 0, own_e=mesh.ix == px - 1,
+                               own_s=mesh.iy == 0, own_n=mesh.iy == py - 1)
+        halo = HaloExchange(mesh, H, cfg.ew_periodic, cfg.ns_periodic)
+        r = nhmg.nh_solve(b["u"], b["v"], b["w"], b["hz"], b["z_r"], b["pm"],
+                          b["pn"], grid, cfg, n_iter=n_iter, halo=halo)
+        div = nhmg.divergence(r.u, r.v, r.w, b["hz"], b["pm"], b["pn"], cfg,
+                              grid, b["z_r"], halo)
+        out.append((from_blocks({"p": r.p, "u": r.u, "v": r.v, "w": r.w,
+                                 "div": div}, mesh, H),
+                    float(r.res0), float(r.res)))
+    return out
 
 
 def run_forced(mesh, spec, nsteps):
