@@ -9,7 +9,7 @@ real-data cases through `Experiment.run`, the command line through
 `roms_tpu_torch.__main__.main`, the rank mesh through
 `driver.run_distributed` and `Experiment.run_distributed`), in phases;
 each prints its own lines and the first failure raises, so the exit code
-is nonzero (the whole script takes about 10 minutes on an H100):
+is nonzero (the whole script takes about 12 minutes on an H100):
 
   0. device: a CUDA device is required; prints its name and the
      `nvidia-smi` name/power limit line; TF32 off.
@@ -150,12 +150,25 @@ is nonzero (the whole script takes about 10 minutes on an H100):
      on each rank's block: its ms, its halo exchanges and all-reduces
      with their ms, and the messages it stages through the host (four
      ranks sharing one card: not a scaling number).
+ 16. float32 against float64 on the card (`roms_tpu_torch.precision_study.
+     study`: the two runs side by side from one setup; the drift of zeta,
+     u and temp over the interior relative to the float64 field's max,
+     and the relative error of the diagnosed mean KE, at step 1 and every
+     10th step): (a) Filament (64x64x32) and Rivers_ana (100x100x10), 50
+     steps each, every row held to at most 10x the JAX package's row of
+     the same case and step in PRECISION_DATA.json (floor 1e-6; zeta,
+     temp and KE, and u for Rivers_ana; Filament's u, near zero at the
+     start, printed only); (b) production 384x192x60 nt=34, 20 steps with
+     the three kernels, and again with their plain versions put in the
+     wrappers' place for that run only: each field's drift at step 20
+     with the kernels at most 10x the plain run's (floor 1e-6); the plain
+     run launches no kernel.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after, in phase 15 on every rank (phase
-12's profile excepted: it reads the device's kernels), and holds them to
-what the
-configuration's gates select: the tracer kernel twice a step where
+12's profile excepted: it reads the device's kernels; phase 16's plain
+run, held to none), and holds them to what the configuration's gates
+select: the tracer kernel twice a step where
 `cuda_tracer.usable` admits the configuration (not for river sources),
 the solve four times, KPP twice where `cuda_kpp.usable` admits the
 configuration (KPP without a mesh block's pad).  The line before the last
@@ -2529,6 +2542,114 @@ def mesh_nh_text(outs, smi):
         + "); " + mesh_peaks(d) + f"; launches a rank {d[0]['counts']}; {smi}")
 
 
+# ----------------------------------------------------------------- phase 16
+# A float32 field's drift from float64 on the card is held to at most
+# PREC_FACTOR times a reference drift, both floored at PREC_FLOOR (below
+# it a field's drift is round-off of its last digits).  (a): the JAX
+# package's drift on the CPU for the same case and step
+# (PRECISION_DATA.json), over its first PREC_STEPS steps: round-off
+# accumulation there, before Rivers_ana turns chaotic after step 60
+# (PRECISION.md, regime 1); Filament's u is printed, not held (near zero
+# at the start, PRECISION.md footnote 1).  (b): production, where the JAX
+# package has no record, against the same float32 run with the three
+# kernels' plain versions, at step PREC_PROD_STEPS.
+PREC_FACTOR, PREC_FLOOR = 10.0, 1e-6
+PREC_STEPS, PREC_PROD_STEPS = 50, 20
+PREC_HELD = {"filament": ("zeta", "temp", "ke_rel"),
+             "rivers_ana": ("zeta", "u", "temp", "ke_rel")}
+
+
+def precision_gate(got, ref, fields, what):
+    """Each field of row `got` at most PREC_FACTOR times row `ref`'s, both
+    floored at PREC_FLOOR; returns the largest ratio."""
+    worst = 0.0
+    for f in fields:
+        if not np.isfinite(got[f]):
+            raise AssertionError(f"{what} step {got['step']}: {f} drift "
+                                 f"{got[f]}")
+        ratio = max(got[f], PREC_FLOOR) / max(ref[f], PREC_FLOOR)
+        if ratio > PREC_FACTOR:
+            raise AssertionError(
+                f"{what} step {got['step']}: {f} drift {got[f]:.3e}, "
+                f"{ratio:.2f}x the reference's {ref[f]:.3e} (at most "
+                f"{PREC_FACTOR}x, floor {PREC_FLOOR})")
+        worst = max(worst, ratio)
+    return worst
+
+
+def precision_rows(name, nsteps, device):
+    """The port's study of a case on the card, with the launch counts of
+    its float64 and float32 runs (2 * nsteps steps) held to the gates."""
+    from roms_tpu_torch import precision_study as ps
+    reset_counts()
+    rows = ps.study(name, ps.maker(name, device), nsteps, device,
+                    say=lambda line: say(f"[16 precision] {line}"))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, 2 * nsteps, ps.CASES[name][0](),
+                 f"16 {name} float64 + float32")
+    return rows, counts
+
+
+def phase_precision(device, smi):
+    """Float32 against float64 on the card: (a) Filament and Rivers_ana
+    against the JAX package's record, (b) production's kernels against
+    their plain versions."""
+    from roms_tpu_torch import precision_study as ps
+    from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer
+    t0 = time.perf_counter()
+    with open(os.path.join(HERE, "PRECISION_DATA.json")) as f:
+        record = json.load(f)
+    for name, held in PREC_HELD.items():
+        rows, counts = precision_rows(name, PREC_STEPS, device)
+        ref = {r["step"]: r for r in record[name]}
+        worst = max(precision_gate(r, ref[r["step"]], held, f"16a {name}")
+                    for r in rows)
+        last = rows[-1]
+        say(f"[16a precision] {name} f32 against f64 on the card, "
+            f"{PREC_STEPS} steps: step {last['step']} "
+            + ", ".join(f"{f} {last[f]:.3e} (JAX CPU "
+                        f"{ref[last['step']][f]:.3e})" for f in ps.FIELDS)
+            + f"; {', '.join(held)} held at most {PREC_FACTOR}x the JAX "
+            f"package's rows (floor {PREC_FLOOR}) at every logged step, "
+            f"largest ratio {worst:.3f}; launches (tracer, solve, kpp) "
+            f"{counts}; {smi}")
+
+    cfg = ps.CASES["production"][0]()
+    rows, counts = precision_rows("production", PREC_PROD_STEPS, device)
+    # the control: the stepper reads the three wrappers from their
+    # modules at each call, so the same study runs their plain versions
+    reset_counts()
+    saved = (cuda_tracer.tracer_stage, cuda_solve.momentum_implicit,
+             cuda_kpp.vmix_update)
+    cuda_tracer.tracer_stage = cuda_tracer.tracer_stage_plain
+    cuda_solve.momentum_implicit = cuda_solve.momentum_implicit_plain
+    cuda_kpp.vmix_update = cuda_kpp.vmix_update_plain
+    try:
+        plain = ps.study("production", ps.maker("production", device),
+                         PREC_PROD_STEPS, device,
+                         say=lambda line: say(f"[16b plain] {line}"))
+        torch.cuda.synchronize()
+    finally:
+        (cuda_tracer.tracer_stage, cuda_solve.momentum_implicit,
+         cuda_kpp.vmix_update) = saved
+    control = read_counts()
+    if control != (0, 0, 0):
+        raise AssertionError(f"16b production with the plain versions: "
+                             f"kernel launches {control}, expected 0")
+    got, ref = rows[-1], plain[-1]
+    worst = precision_gate(got, ref, ps.FIELDS, "16b production kernels "
+                           "against plain")
+    say(f"[16b precision] production {cfg.nx}x{cfg.ny}x{cfg.nz} "
+        f"nt={cfg.nt} f32 against f64 on the card, step {got['step']}, "
+        "kernels / plain versions: "
+        + ", ".join(f"{f} {got[f]:.3e} / {ref[f]:.3e}" for f in ps.FIELDS)
+        + f"; each at most {PREC_FACTOR}x (floor {PREC_FLOOR}), largest "
+        f"ratio {worst:.3f}; launches (tracer, solve, kpp) {counts}, the "
+        f"plain run {control}; {smi}")
+    say(f"[16 precision] {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     from roms_tpu_torch.ops import _build  # noqa: F401  (fails off the repo)
     t0 = time.perf_counter()
@@ -2552,6 +2673,7 @@ def main():
         phase_output(device, workdir)
         phase_options(device, workdir)
         phase_mesh(device, workdir, smi)
+    phase_precision(device, smi)
     # the card again, where the end of a long log still shows it
     say(f"[done] {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
