@@ -10,7 +10,7 @@ import numpy as np
 
 from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.diag import compute_diag
-from roms_tpu_torch.monitor import check_blowup
+from roms_tpu_torch.monitor import check_blowup, span
 from roms_tpu_torch.ops.weights import set_weights
 from roms_tpu_torch.stepper import step
 
@@ -91,16 +91,20 @@ def _loop(state, forcing, cfg: ModelConfig, nsteps, step_fn, diag_fn,
           timers):
     """The step loop of `run` and `run_distributed`: step_fn(state,
     forcing, first_step), diag_fn(state) -> Diag or None, forcing_at(t,
-    state) -> the step's forcing or None for `forcing` every step."""
+    state) -> the step's forcing or None for `forcing` every step.  Under
+    `monitor.tracing` each step is the span roms.step, each call of
+    forcing_at roms.forcing, each diagnostics row roms.diag, and each call
+    of step_hook and its drain roms.output."""
     if nsteps is None:
         nsteps = cfg.ntimes
     rows = []
 
     def log(st, iic):
         if diag_fn is not None and _diag_due(iic, ninfo):
-            d = diag_fn(st)
-            row = (iic, float(d.avke), float(d.avke2b),
-                   float(d.cu_adv), float(d.cu_w))
+            with span("roms.diag"):
+                d = diag_fn(st)
+                row = (iic, float(d.avke), float(d.avke2b),
+                       float(d.cu_adv), float(d.cu_w))
             rows.append(row)
             if print_diag:
                 print(f"{iic:3d} {row[1]:.16E} {row[2]:.16E} "
@@ -113,14 +117,19 @@ def _loop(state, forcing, cfg: ModelConfig, nsteps, step_fn, diag_fn,
         timers.tic("step")
     log(state, 0)
     for i in range(nsteps):
-        frc = forcing if forcing_at is None else forcing_at(
-            t0 + i * cfg.dt, state)
-        state = step_fn(state, frc, i == 0)
+        frc = forcing
+        if forcing_at is not None:
+            with span("roms.forcing"):
+                frc = forcing_at(t0 + i * cfg.dt, state)
+        with span("roms.step"):
+            state = step_fn(state, frc, i == 0)
         log(state, i + 1)
         if step_hook is not None:
-            step_hook(state, i + 1)
+            with span("roms.output"):
+                step_hook(state, i + 1)
     if step_hook is not None and hasattr(step_hook, "drain"):
-        step_hook.drain()        # async writers: everything on disk first
+        with span("roms.output"):
+            step_hook.drain()    # async writers: everything on disk first
     if timers is not None:
         timers.toc("step", sync=state.zeta)
         timers.nsteps += nsteps

@@ -3,10 +3,17 @@ detection (port of roms_tpu/monitor.py; reference: src/timers.F,
 src/error_handling_mod.F90, src/diag.F:624-634).
 
 * `Timers`: wall/CPU timing with a run banner and per-phase accumulators
-  (reference: timers.F start/stop_timers; MPI_Wtime total printed as
-  MPI_run_time, main.F:45-47).  `toc(sync=t)` waits for the device that
-  holds `t` (`torch.cuda.synchronize`), so device work is counted; a CPU
-  tensor needs no wait.
+  and call counts (reference: timers.F start/stop_timers; MPI_Wtime total
+  printed as MPI_run_time, main.F:45-47).  `toc(sync=t)` waits for the
+  device that holds `t` (`torch.cuda.synchronize`), so device work is
+  counted; a CPU tensor needs no wait.
+* `span(name)` / `tracing(timers)`: the program's own spans, named
+  `roms.<phase>`, around the driver loop's parts, the step's phases and
+  the fast loop's sub-steps.  Off (the default) a span is one shared
+  no-op context: no clock read, no allocation.  Inside `tracing(timers)`
+  each span enters `torch.profiler.record_function(name)`, so a profiler
+  sees it on the clock of the device's kernels, and adds its host
+  seconds and one call to `timers` (no synchronize: the host's time).
 * `ErrorLog`: three-scope error accumulation (global / rank / gridpoint)
   with an `abort_check` that raises once any error is queued
   (reference: error_handling_mod.F90:23-58 raise_* + :326-374 abort_check).
@@ -17,6 +24,7 @@ src/error_handling_mod.F90, src/diag.F:624-634).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -77,6 +85,7 @@ class Timers:
         self._c0 = time.process_time()
         self._phase_start: Dict[str, float] = {}
         self.phases: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
         self.nsteps = 0
 
     def tic(self, phase: str):
@@ -89,6 +98,7 @@ class Timers:
             torch.cuda.synchronize(sync.device)
         dt = time.perf_counter() - self._phase_start[phase]
         self.phases[phase] = self.phases.get(phase, 0.0) + dt
+        self.calls[phase] = self.calls.get(phase, 0) + 1
         return dt
 
     def banner(self) -> str:
@@ -97,8 +107,51 @@ class Timers:
         cpu = time.process_time() - self._c0
         lines = [f"run_time = {wall:.3f} s   cpu_time = {cpu:.3f} s"]
         for k, v in sorted(self.phases.items()):
-            lines.append(f"  {k:<24s} {v:10.3f} s")
+            lines.append(f"  {k:<24s} {v:10.3f} s {self.calls[k]:9d} calls")
         return "\n".join(lines)
+
+
+_OFF = contextlib.nullcontext()   # every span while tracing is off
+_sink: Optional[Timers] = None    # the Timers spans add to, while tracing
+
+
+class _Span:
+    """One span while tracing is on: a record_function range and a
+    tic/toc of its name on the sink it was opened with."""
+
+    __slots__ = ("name", "timers", "rf")
+
+    def __init__(self, name: str, timers: Timers):
+        self.name, self.timers = name, timers
+        self.rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.rf.__enter__()
+        self.timers.tic(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self.timers.toc(self.name)
+        return self.rf.__exit__(*exc)
+
+
+def span(name: str):
+    """Context manager around one phase of the program; see the module
+    docstring.  Spans of one name must not nest."""
+    if _sink is None:
+        return _OFF
+    return _Span(name, _sink)
+
+
+@contextlib.contextmanager
+def tracing(timers: Timers):
+    """Turn the program's spans on, adding to `timers`, for the body."""
+    global _sink
+    prev, _sink = _sink, timers
+    try:
+        yield timers
+    finally:
+        _sink = prev
 
 
 def check_blowup(diag_row, step: int, error_log: Optional[ErrorLog] = None):

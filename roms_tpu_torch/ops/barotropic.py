@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from roms_tpu_torch.config import ModelConfig
+from roms_tpu_torch.monitor import span
 from roms_tpu_torch.ops import bc, rivers
 from roms_tpu_torch.parallel.halo import shift
 
@@ -142,7 +143,8 @@ def substep(fs: FastState, coeffs, w1: float, w2: float, rufrc, rvfrc,
             dtfast * grid.pm * grid.pn * forcing.pipe_flx, 0.0)
     if cfg.masking:
         zeta_new = zeta_new * grid.rmask
-    zeta_new = bc.zetabc(zeta_new, fs.z_stp, grid, cfg, forcing.bry)
+    with span("roms.fast.bc2d"):
+        zeta_new = bc.zetabc(zeta_new, fs.z_stp, grid, cfg, forcing.bry)
     dnew = zeta_new + h
     zwrk = (bkw_new * zeta_new + bkw * fs.z_stp
             + bkw1 * fs.z_bak + bkw2 * fs.z_old)
@@ -200,10 +202,11 @@ def substep(fs: FastState, coeffs, w1: float, w2: float, rufrc, rvfrc,
     ubar_new = du_new / (dnew + dnew_w)
     vbar_new = dv_new / (dnew + dnew_s)
 
-    ubar_new = bc.u2dbc(ubar_new, fs.u_stp, fs.v_stp, zeta_new, fs.z_stp,
-                        grid, cfg, forcing.bry)
-    vbar_new = bc.v2dbc(vbar_new, fs.v_stp, fs.u_stp, zeta_new, fs.z_stp,
-                        grid, cfg, forcing.bry)
+    with span("roms.fast.bc2d"):
+        ubar_new = bc.u2dbc(ubar_new, fs.u_stp, fs.v_stp, zeta_new,
+                            fs.z_stp, grid, cfg, forcing.bry)
+        vbar_new = bc.v2dbc(vbar_new, fs.v_stp, fs.u_stp, zeta_new,
+                            fs.z_stp, grid, cfg, forcing.bry)
 
     # fast-time flux averaging: interior formula from DUnew, boundary
     # strips from the BC'd ubar (reference: :420-437 vs :474-528)
@@ -235,7 +238,8 @@ def substep(fs: FastState, coeffs, w1: float, w2: float, rufrc, rvfrc,
             ubar_new, vbar_new, du_avg1, dv_avg1, dnew, forcing, grid)
 
     # one halo refresh for the three 2D fields
-    zuv = halo_fill(torch.stack([zeta_new, ubar_new, vbar_new]))
+    with span("roms.fast.halo"):
+        zuv = halo_fill(torch.stack([zeta_new, ubar_new, vbar_new]))
     zeta_new, ubar_new, vbar_new = zuv[0], zuv[1], zuv[2]
 
     fs_new = FastState(
@@ -253,31 +257,37 @@ def fast_loop(zeta0, ubar0, vbar0, rufrc, rvfrc, rho_s, rho_a, forcing,
               du_avg1_in, dv_avg1_in, du_avg2_in, dv_avg2_in,
               w1, w2, grid, cfg: ModelConfig, halo_fill):
     """Run all nfast barotropic sub-steps (reference: main.F:456-464).
-    w1, w2: (nfast,) host float weights."""
-    w1 = [float(x) for x in w1]
-    w2 = [float(x) for x in w2]
-    nfast = len(w1)
-    fs = FastState(
-        z_stp=zeta0, z_bak=zeta0, z_old=zeta0,
-        u_stp=ubar0, u_bak=ubar0, u_old=ubar0,
-        v_stp=vbar0, v_bak=vbar0, v_old=vbar0,
-        zt_avg1=torch.zeros_like(zeta0),
-        du_avg1=du_avg1_in, dv_avg1=dv_avg1_in,
-        du_avg2=du_avg2_in, dv_avg2=dv_avg2_in)
+    w1, w2: (nfast,) host float weights.  Under `monitor.tracing` the call
+    is the span roms.fast_loop, and each sub-step roms.fast.substep, with
+    its 2D boundary conditions (two roms.fast.bc2d: zetabc, then u2dbc and
+    v2dbc) and its halo refresh (roms.fast.halo) inside."""
+    with span("roms.fast_loop"):
+        w1 = [float(x) for x in w1]
+        w2 = [float(x) for x in w2]
+        nfast = len(w1)
+        fs = FastState(
+            z_stp=zeta0, z_bak=zeta0, z_old=zeta0,
+            u_stp=ubar0, u_bak=ubar0, u_old=ubar0,
+            v_stp=vbar0, v_bak=vbar0, v_old=vbar0,
+            zt_avg1=torch.zeros_like(zeta0),
+            du_avg1=du_avg1_in, dv_avg1=dv_avg1_in,
+            du_avg2=du_avg2_in, dv_avg2=dv_avg2_in)
 
-    # sub-step 1: FE/backward + forcing conversion + PGF correction
-    fs, (rufrc, rvfrc, du_avg_bak, dv_avg_bak) = substep(
-        fs, FB_FIRST, w1[0], w2[0], rufrc, rvfrc, rho_s, rho_a, forcing,
-        grid, cfg, halo_fill, first=True)
-    # sub-step 2: AB2-AM3; sub-steps 3..nfast: AB3-AM4
-    for k in range(1, nfast):
-        fs = substep(fs, FB_SECOND if k == 1 else FB_GENERAL, w1[k], w2[k],
-                     rufrc, rvfrc, rho_s, rho_a, forcing, grid, cfg,
-                     halo_fill, first=False)
+        # sub-step 1: FE/backward + forcing conversion + PGF correction
+        with span("roms.fast.substep"):
+            fs, (rufrc, rvfrc, du_avg_bak, dv_avg_bak) = substep(
+                fs, FB_FIRST, w1[0], w2[0], rufrc, rvfrc, rho_s, rho_a,
+                forcing, grid, cfg, halo_fill, first=True)
+        # sub-step 2: AB2-AM3; sub-steps 3..nfast: AB3-AM4
+        for k in range(1, nfast):
+            with span("roms.fast.substep"):
+                fs = substep(fs, FB_SECOND if k == 1 else FB_GENERAL, w1[k],
+                             w2[k], rufrc, rvfrc, rho_s, rho_a, forcing, grid,
+                             cfg, halo_fill, first=False)
 
-    zeta_avg = halo_fill(fs.zt_avg1)
-    return dict(zeta=zeta_avg, ubar=fs.u_stp, vbar=fs.v_stp,
-                du_avg1=fs.du_avg1, dv_avg1=fs.dv_avg1,
-                du_avg2=fs.du_avg2, dv_avg2=fs.dv_avg2,
-                du_avg_bak=du_avg_bak, dv_avg_bak=dv_avg_bak,
-                rufrc=rufrc, rvfrc=rvfrc)
+        zeta_avg = halo_fill(fs.zt_avg1)
+        return dict(zeta=zeta_avg, ubar=fs.u_stp, vbar=fs.v_stp,
+                    du_avg1=fs.du_avg1, dv_avg1=fs.dv_avg1,
+                    du_avg2=fs.du_avg2, dv_avg2=fs.dv_avg2,
+                    du_avg_bak=du_avg_bak, dv_avg_bak=dv_avg_bak,
+                    rufrc=rufrc, rvfrc=rvfrc)

@@ -33,7 +33,21 @@ the step in three windows of one run, after 2 warm-up steps:
           wall windows; the shares are what the layers weigh;
   bgc     in a BGC case, one call of `stepper.bgc_update` on the last
           step's inputs under torch.profiler: the kernels it launches and
-          their time, beside the step's.
+          their time, beside the step's;
+  spans   two more `driver.run` calls with the program's own spans on
+          (`monitor.tracing`, the roms.* names of driver.py, stepper.py
+          and ops/barotropic.py): 5 steps without the profiler, each
+          span's host ms and calls a step from the Timers sink and the
+          ms/step beside the wall windows' (tracing's cost); then 2 steps
+          under torch.profiler, whose CUDA runtime calls are put in the
+          innermost roms.* range open on the host when they start: kernel
+          launch calls a step in all and inside roms.fast_loop, the calls
+          that wait on the device (synchronizes, and blocking copies) and
+          where they are, and the device's idle seconds by the innermost
+          range open at each gap's middle ("other host" outside every
+          range); and two checks of the shared clock, that the launch
+          calls number the kernels and that no kernel launched inside
+          roms.fast_loop starts on the device before that range opened.
 
 Each reading is a line of its own on stdout.
 """
@@ -49,7 +63,7 @@ from collections import defaultdict
 
 import torch
 
-from roms_tpu_torch import nhmg, stepper
+from roms_tpu_torch import monitor, nhmg, stepper
 from roms_tpu_torch.cases import (bench_production, bgc_real, cdr_3d,
                                   filament, flux_frc, pipes_real,
                                   rivers_real)
@@ -61,6 +75,8 @@ from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
 
 WARM, WALL_WINDOWS, WALL_STEPS, PROF_STEPS, LAYER_STEPS = 2, 3, 5, 2, 2
 TOP = 12    # kernels listed by name
+SPAN_WINDOW = "profile_step.spans"
+OTHER_HOST = "other host"
 
 # (module, attribute) of each layer the step calls through a module name;
 # none is called from inside another (the 2D BCs run inside the fast loop
@@ -197,8 +213,12 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
 
     _sync(device)
     try:
-        run(grid, st, frc, cfg, nsteps=l_end, collect_diag=False,
-            step_hook=hook, forcing_fn=None if frc_fn is None else forcing_fn)
+        st, _ = run(grid, st, frc, cfg, nsteps=l_end, collect_diag=False,
+                    step_hook=hook,
+                    forcing_fn=None if frc_fn is None else forcing_fn)
+        restore()
+        restore = None
+        out.update(spans(grid, st, frc, cfg, device, frc_fn))
     finally:
         if restore is not None:
             restore()
@@ -249,6 +269,7 @@ def profile(cfg, device, dtype=torch.float32, say=print, case=filament,
         f"{100 * rest / step_ms:6.2f} %")
     if bgc_args:
         out.update(bgc_block(*bgc_args, acts, device, out, say))
+    say_spans(out, say)
     return out
 
 
@@ -273,6 +294,169 @@ def bgc_block(args, kw, acts, device, out, say):
         f"{ms:.3f} ms ({ms / out.get('device_ms', float('nan')):.4f} of "
         f"the step's)")
     return {"bgc_kernels": n, "bgc_device_ms": ms, "bgc_share": share}
+
+
+def spans(grid, st, frc, cfg, device, frc_fn=None) -> dict:
+    """The spans reading (module docstring): WALL_STEPS steps with the
+    program's spans on, then PROF_STEPS more under torch.profiler."""
+    timers = monitor.Timers()
+    _sync(device)
+    t0 = time.perf_counter()
+    with monitor.tracing(timers):
+        st, _ = run(grid, st, frc, cfg, nsteps=WALL_STEPS,
+                    collect_diag=False, forcing_fn=frc_fn)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        out = {"spans_step_ms": 1e3 * wall / WALL_STEPS,
+               "span_ms": {k: 1e3 * v / WALL_STEPS
+                           for k, v in timers.phases.items()},
+               "span_calls": {k: n / WALL_STEPS
+                              for k, n in timers.calls.items()}}
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function(SPAN_WINDOW):
+                run(grid, st, frc, cfg, nsteps=PROF_STEPS,
+                    collect_diag=False, forcing_fn=frc_fn)
+                _sync(device)
+    out.update(reduce_spans(prof.profiler.kineto_results.events(),
+                            PROF_STEPS))
+    return out
+
+
+def _innermost(ranges, points):
+    """The innermost of `ranges` ((name, start, end), properly nested)
+    open at each of `points`, in order; OTHER_HOST where none is."""
+    marks = [(s, 0, i) for i, (_, s, _) in enumerate(ranges)]
+    marks += [(e, 2, i) for i, (_, _, e) in enumerate(ranges)]
+    marks += [(t, 1, i) for i, t in enumerate(points)]
+    marks.sort()        # at one instant: opens, then points, then closes
+    stack, out = [], [OTHER_HOST] * len(points)
+    for _, kind, i in marks:
+        if kind == 0:
+            stack.append(i)
+        elif kind == 2:
+            stack.remove(i)
+        elif stack:
+            out[i] = ranges[stack[-1]][0]
+    return out
+
+
+def _count(names, steps):
+    out = defaultdict(float)
+    for n in names:
+        out[n] += 1.0 / steps
+    return dict(out)
+
+
+def reduce_spans(events, steps: int) -> dict:
+    """The profiled part of the spans reading from the profiler's raw
+    events (`_KinetoEvent`s): the roms.* ranges on the host, the CUDA
+    runtime and driver calls and the device operations, all inside the
+    SPAN_WINDOW range.  Only the ranges' reading where the trace holds no
+    runtime call (a CPU run)."""
+    ranges, calls, device, window = [], [], [], None
+    for e in events:
+        # by device and name: not every torch has `activity_type`
+        name, s, d = e.name(), e.start_ns(), e.duration_ns()
+        if str(e.device_type()).endswith("CUDA"):
+            if name.startswith(("roms.", SPAN_WINDOW)):
+                continue            # the ranges' shadows on the card
+            kind = ("gpu_memcpy" if name.startswith("Memcpy") else
+                    "gpu_memset" if name.startswith("Memset") else "kernel")
+            device.append((kind, s, s + d, e.correlation_id()))
+        elif name == SPAN_WINDOW:
+            window = (s, s + d)
+        elif name.startswith("roms."):
+            ranges.append((name, s, s + d))
+        elif name.startswith("cu"):     # CUDA runtime and driver calls
+            calls.append((name, s, s + d, e.correlation_id()))
+    if window is None:
+        raise RuntimeError(f"the trace holds no {SPAN_WINDOW} range")
+    w0, w1 = window
+    ranges = sorted((r for r in ranges if w0 <= r[1] and r[2] <= w1),
+                    key=lambda r: (r[1], -r[2]))
+    out = {"profiled_span_calls": _count([r[0] for r in ranges], steps)}
+    calls = [c for c in calls if w0 <= c[1] <= w1]
+    if not calls:
+        return out
+    device = [d for d in device if w0 <= d[1] <= w1]
+    launches = [c for c in calls if "LaunchKernel" in c[0]
+                or c[0].startswith("cuLaunch")]
+    waits = [c for c in calls if "Synchronize" in c[0]
+             or (c[0].startswith(("cudaMemcpy", "cuMemcpy"))
+                 and "Async" not in c[0])]
+    fast = [r for r in ranges if r[0] == "roms.fast_loop"]
+    in_fast = [c for c in launches
+               if any(s <= c[1] <= e for _, s, e in fast)]
+    kernels = [d for d in device if d[0] == "kernel"]
+    # the shared clock: each kernel of a launch call inside the fast loop
+    # starts on the device after the fast loop's range opened
+    opened = {c[3]: max(s for _, s, e in fast if s <= c[1] <= e)
+              for c in in_fast}
+    lead = [opened[d[3]] - d[1] for d in kernels if d[3] in opened]
+    # the stretches of the window with no device operation running
+    gaps, t = [], w0
+    for _, s, e, _ in sorted(device, key=lambda d: d[1]):
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, min(e, w1))
+    if t < w1:
+        gaps.append((t, w1))
+    idle = defaultdict(float)
+    for n, (g0, g1) in zip(_innermost(ranges, [0.5 * (a + b)
+                                               for a, b in gaps]), gaps):
+        idle[n] += 1e-9 * (g1 - g0) / steps
+    out.update(
+        window_ms=1e-6 * (w1 - w0) / steps,
+        launch_calls_per_step=len(launches) / steps,
+        kernels_in_window=len(kernels) / steps,
+        fast_loop_launches=len(in_fast) / steps,
+        launches_by_span=_count(_innermost(ranges, [c[1] for c in launches]),
+                                steps),
+        host_syncs_per_step=len(waits) / steps,
+        host_sync_ms=1e-6 * sum(c[2] - c[1] for c in waits) / steps,
+        syncs_by_span=_count(_innermost(ranges, [c[1] for c in waits]),
+                             steps),
+        sync_names=_count([c[0] for c in waits], steps),
+        idle_ms_by_span={k: 1e3 * v for k, v in idle.items()},
+        clock_matched=len(lead), clock_early=sum(x > 0 for x in lead),
+        clock_lead_us=1e-3 * max(lead, default=0))
+    return out
+
+
+def say_spans(out, say):
+    """Print the spans reading."""
+    step = out["spans_step_ms"]
+    wall = out.get("wall_ms")
+    cost = (f", {step / (sum(wall) / len(wall)):.4f} of the wall windows'"
+            if wall else "")
+    say(f"[spans] {WALL_STEPS} steps with the program's spans on: "
+        f"{step:.3f} ms/step{cost}")
+    for name, ms in sorted(out["span_ms"].items(), key=lambda kv: -kv[1]):
+        say(f"[spans]   {name:24s} {ms:9.3f} host ms/step "
+            f"{out['span_calls'][name]:7.1f} calls/step")
+    if "launch_calls_per_step" not in out:
+        say("[spans] launches, syncs, idle: not measured (no CUDA runtime "
+            "calls in the trace)")
+        return
+    say(f"[spans] {PROF_STEPS} profiled steps, {out['window_ms']:.3f} "
+        f"ms/step: {out['launch_calls_per_step']:.1f} launch calls/step "
+        f"({out['kernels_in_window']:.1f} kernels), "
+        f"{out['fast_loop_launches']:.1f} inside roms.fast_loop; "
+        f"{out['host_syncs_per_step']:.1f} host syncs/step "
+        f"({out['host_sync_ms']:.3f} ms/step); clock: "
+        f"{out['clock_early']} of {out['clock_matched']} fast-loop kernels "
+        f"start before their range (by at most "
+        f"{out['clock_lead_us']:.3f} us)")
+    for key, label, unit in (
+            ("launches_by_span", "launches", "launches/step"),
+            ("syncs_by_span", "syncs", "syncs/step"),
+            ("sync_names", "sync", "calls/step"),
+            ("idle_ms_by_span", "idle", "idle ms/step")):
+        for name, v in sorted(out[key].items(), key=lambda kv: -kv[1]):
+            say(f"[spans]   {label:8s} {name:28s} {v:10.3f} {unit}")
 
 
 def main():

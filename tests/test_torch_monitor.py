@@ -62,8 +62,9 @@ def test_timers_phases():
     # a CPU tensor needs no device wait
     t.toc("step2d", sync=torch.zeros(3))
     assert t.phases["step2d"] >= 0.02
+    assert t.calls == {"step2d": 2}
     b = t.banner()
-    assert "run_time" in b and "step2d" in b
+    assert "run_time" in b and "step2d" in b and "2 calls" in b
 
 
 def test_diag_schedule_log_ramp():

@@ -163,6 +163,13 @@ def test_profile_step_reads_the_production_case():
                                say=lambda *a: None, case=tbp)
     assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS}
     assert 0 < sum(out["layers_ms"].values()) < out["layer_step_ms"]
+    # the spans reading: the program's spans a step, the same in the
+    # Timers sink and in the profiled steps; no runtime calls to count
+    nfast = len(set_weights(cfg.ndtfast)[0])
+    assert out["span_calls"] == out["profiled_span_calls"]
+    assert out["span_calls"]["roms.fast.bc2d"] == 2 * nfast
+    assert out["span_ms"]["roms.fast_loop"] < out["span_ms"]["roms.step"]
+    assert "launch_calls_per_step" not in out
 
 
 def test_profile_step_reads_the_batched_tracer_branch():
@@ -203,9 +210,11 @@ def test_profile_step_reads_forcing_fn_of_a_built_case():
     out = profile_step.profile(None, torch.device("cpu"), dtype=F64,
                                say=lambda *a: None, case=case,
                                workdir="inputs")
+    # the spans reading's two calls run with the case's forcing_fn too
     nsteps = (profile_step.WARM + profile_step.WALL_WINDOWS
               * profile_step.WALL_STEPS + profile_step.PROF_STEPS
-              + profile_step.LAYER_STEPS)
+              + profile_step.LAYER_STEPS + profile_step.WALL_STEPS
+              + profile_step.PROF_STEPS)
     assert len(calls) == nsteps and closed == [True]
     assert set(out["layers_ms"]) == {n for _, n in profile_step.LAYERS} - {
         "vmix_update", "visc3d"} | {"forcing_fn"}
