@@ -9,7 +9,7 @@ real-data cases through `Experiment.run`, the command line through
 `roms_tpu_torch.__main__.main`, the rank mesh through
 `driver.run_distributed` and `Experiment.run_distributed`), in phases;
 each prints its own lines and the first failure raises, so the exit code
-is nonzero (the whole script takes about 12 minutes on an H100):
+is nonzero (the whole script takes about 9 minutes on an H100):
 
   0. device: a CUDA device is required; prints its name and the
      `nvidia-smi` name/power limit line; TF32 off.
@@ -163,6 +163,17 @@ is nonzero (the whole script takes about 12 minutes on an H100):
      wrappers' place for that run only: each field's drift at step 20
      with the kernels at most 10x the plain run's (floor 1e-6); the plain
      run launches no kernel.
+ 17. the fast loop's CUDA graph (`ops/barotropic.py`) against the eager
+     loop: the benchmark's two configurations (Filament 512x256x60 and
+     production 384x192x60 nt=34, float32), 20 steps with the graph and
+     the same 20 with `barotropic._fast_loop_eager` in `fast_loop`'s
+     place, every array of the two states bitwise equal (else each one
+     that differs is named with its largest gap); `graph_stats`, the host
+     ms of a fast_loop call, the ms a step and max_memory_allocated on
+     both sides.  Phases 9 (the three USWC cases, 3 steps each), 14a (the
+     NH set), 14b (the nested flow) and 16 (Filament and production in
+     float64) run the same comparison once on their cases; it runs after
+     phase 7.
 
 Every phase that drives a path sets the kernels' launch counts to 0 just
 before it and reads them just after, in phase 15 on every rank (phase
@@ -883,6 +894,127 @@ def phase_reference_size(device):
                "7 production 920", False)
 
 
+# ----------------------------------------------------------------- phase 17
+def _compared(x, path="state"):
+    """(path, value) of every tensor, numpy array and number in a state,
+    dict, tuple or list, depth first."""
+    if isinstance(x, (torch.Tensor, np.ndarray, int, float)):
+        yield path, x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _compared(getattr(x, f.name), f"{path}.{f.name}")
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _compared(v, f"{path}[{k!r}]")
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from _compared(v, f"{path}[{i}]")
+
+
+def _gap(a, b):
+    """The largest |a - b| of two equal-shaped arrays or numbers."""
+    if isinstance(a, torch.Tensor):
+        return float((a.double() - b.double()).abs().max())
+    return float(np.max(np.abs(np.asarray(a, np.float64)
+                               - np.asarray(b, np.float64))))
+
+
+def graph_against_eager(what, make_run, nsteps=None):
+    """`make_run(hook)` runs a case from a fresh start (with `hook` as its
+    step hook where it takes one) and returns what to compare; it runs
+    once with the fast loop's CUDA graph and once with
+    `barotropic._fast_loop_eager` in `fast_loop`'s place.  Every tensor,
+    array and number of the two results must be bitwise equal; else this
+    raises naming each one that differs and its largest gap.  Prints
+    `graph_stats` of the graph's run, the host ms of a fast_loop call on
+    both sides (median; the graph's first call, its capture, apart), the
+    wall ms a step after the first where `nsteps` is given, and on both
+    sides max_memory_allocated above what was allocated before the run.
+    Returns {side: numbers}."""
+    from roms_tpu_torch.ops import barotropic as bt
+    loop = bt.fast_loop
+    sides, results = {}, {}
+    for side, fn in (("graph", loop), ("eager", bt._fast_loop_eager)):
+        host, clock = [], {}
+
+        def timed(*a, _fn=fn, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            host.append(time.perf_counter() - t0)
+            return out
+
+        def hook(st, iic):
+            if iic in (1, nsteps):
+                torch.cuda.synchronize()
+                clock[iic] = time.perf_counter()
+        bt._graphs.clear()
+        for k in bt.graph_stats:
+            bt.graph_stats[k] = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()   # the other side's result
+        bt.fast_loop = timed
+        try:
+            results[side] = make_run(hook)
+            torch.cuda.synchronize()
+        finally:
+            bt.fast_loop = loop
+        rest = host[1:] if side == "graph" else host
+        sides[side] = {
+            "stats": dict(bt.graph_stats), "calls": len(host),
+            "first_ms": 1e3 * host[0],
+            "host_ms": 1e3 * float(np.median(rest)) if rest else None,
+            "step_ms": (1e3 * (clock[nsteps] - clock[1]) / (nsteps - 1)
+                        if nsteps and len(clock) == 2 else None),
+            "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+    got = list(_compared(results["graph"]))
+    ref = list(_compared(results["eager"]))
+    if [p for p, _ in got] != [p for p, _ in ref]:
+        raise AssertionError(f"[{what}] graph and eager runs returned "
+                             "different structures")
+    bad = [(p, _gap(a, b)) for (p, a), (_, b) in zip(got, ref)
+           if not (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                   else np.array_equal(a, b))]
+    g, e = sides["graph"], sides["eager"]
+    if g["stats"]["captures"] < 1 or g["stats"]["eager"]:
+        raise AssertionError(f"[{what}] the graph was not taken: "
+                             f"{g['stats']}")
+    if bad:
+        raise AssertionError(
+            f"[{what}] graph against eager: {len(bad)} of {len(got)} "
+            "differ: " + ", ".join(f"{p} largest gap {d:.3e}"
+                                   for p, d in bad[:8]))
+
+    def ms(x):
+        return "-" if x is None else f"{x:.3f}"
+    say(f"[{what}] fast-loop graph against eager: {len(got)} arrays bitwise "
+        f"equal; graph_stats {g['stats']}; host ms a fast_loop call "
+        f"{ms(g['host_ms'])} (capture call {g['first_ms']:.1f}) / "
+        f"{ms(e['host_ms'])}; ms a step {ms(g['step_ms'])} / "
+        f"{ms(e['step_ms'])}; max_memory_allocated above the start "
+        f"{g['peak_gib']:.4f} / {e['peak_gib']:.4f} GiB")
+    return sides
+
+
+def phase_graph(device, nsteps=20):
+    """17: the benchmark's two configurations (Filament 512x256x60 and
+    production 384x192x60 nt=34, float32) for `nsteps` steps with the fast
+    loop's graph and again eager, bitwise."""
+    from roms_tpu_torch.cases import bench_production, filament
+    for name, case, cfg in (
+            ("filament", filament,
+             filament.config().replace(nx=512, ny=256, nz=60)),
+            ("production", bench_production,
+             bench_production.config(nx=384, ny=192, nz=60, nt=34))):
+        def make_run(hook, case=case, cfg=cfg):
+            exp = analytic(case, cfg, device)()
+            return exp.run(nsteps=nsteps, collect_diag=False,
+                           step_hook=hook)[0]
+        graph_against_eager(f"17 graph {name} {nsteps} steps", make_run,
+                            nsteps)
+
+
 # ------------------------------------------------------------------ phase 8
 DATA = os.path.join(HERE, "tests", "data")
 # tolerances of tests/test_rivers_regression.py and
@@ -1061,9 +1193,18 @@ def check_masses(name, masses, cfg):
     return float(m_dev[held].max()), note
 
 
-def phase_real_f64(device, workdir):
+def phase_real_f64(device, workdir, nsteps=3):
     for name in REAL_CASES:
         real_f64(device, workdir, name, name, 20, "9 real data")
+    for name in REAL_CASES:
+        def make_run(hook, name=name):
+            exp = real_case(name).build(workdir, ntimes=nsteps,
+                                        dtype=torch.float64, device=device)
+            try:
+                return exp.run(nsteps=nsteps, step_hook=hook)
+            finally:
+                exp.fileset.close()
+        graph_against_eager(f"9 {name} f64 {nsteps} steps", make_run)
 
 
 def phase_real_f32(device, workdir, warm=2, nsteps=10):
@@ -1696,6 +1837,15 @@ def phase_options_f64(device, nsteps=3):
             f"{n} arrays of {', '.join(on)} {worst:.3e}, their conditioned "
             f"ones {cond:.3e}; launches tracer {counts[0]}, solve "
             f"{counts[1]}, kpp {counts[2]}")
+    cfg = bench_production.config(nx=48, ny=32, nz=16, nt=4).replace(
+        **bench_production.OPTIONS["nh"])
+
+    def make_run(hook):
+        grid, st, frc = bench_production.setup(cfg, dtype=torch.float64,
+                                               device=device)
+        return run(grid, st, frc, cfg, nsteps=nsteps, collect_diag=False,
+                   step_hook=hook)[0]
+    graph_against_eager(f"14a-i nh f64 {nsteps} steps", make_run)
 
 
 def phase_nested(device, workdir):
@@ -1736,6 +1886,13 @@ def phase_nested(device, workdir):
         f"{out['expect']:.6e}; UpscaleWriter file equal to the strips; "
         f"numbers vs the JAX flow max rel {rel:.3e}; launches tracer "
         f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}")
+    runs = iter(("graph", "eager"))
+
+    def make_run(hook):
+        side_dir = os.path.join(workdir, f"nested_{next(runs)}")
+        os.makedirs(side_dir)
+        return nb.run_flow(side_dir, device=device)
+    graph_against_eager("14b nested f64", make_run)
 
 
 def seed_wet(grid, cfg, n, device, seed=0):
@@ -2647,6 +2804,13 @@ def phase_precision(device, smi):
         + f"; each at most {PREC_FACTOR}x (floor {PREC_FLOOR}), largest "
         f"ratio {worst:.3f}; launches (tracer, solve, kpp) {counts}, the "
         f"plain run {control}; {smi}")
+    from roms_tpu_torch.driver import run
+    for name, nsteps in (("filament", 3), ("production", 2)):
+        def make_run(hook, name=name, nsteps=nsteps):
+            cfg, grid, st, frc = ps.maker(name, device)(torch.float64)
+            return run(grid, st, frc, cfg, nsteps=nsteps,
+                       collect_diag=False, step_hook=hook)[0]
+        graph_against_eager(f"16 {name} f64 {nsteps} steps", make_run)
     say(f"[16 precision] {time.perf_counter() - t0:.1f} s")
 
 
@@ -2661,6 +2825,7 @@ def main():
     phase_filament_full_width(device)
     kernels = phase_production_full_width(device)
     phase_reference_size(device)
+    phase_graph(device)
     phase_point_sources(device)
     # the USWC inputs (106 MB) go to the ignored build/ of this checkout
     build = os.path.join(HERE, "build")
