@@ -64,9 +64,10 @@ def _one(name: str, got, ref, speed: float, where=None) -> float:
 
 def gap(name: str, got: torch.Tensor, ref_state) -> float:
     """The number `name` of a field `got` of the program's state against
-    the reference state."""
-    ref = getattr(ref_state, name).to(torch.float64)
-    got = _f64(got, ref)
+    the reference state.  A field with components is read one component
+    at a time, so no float64 array of all of them is made beside the
+    reference's."""
+    ref = getattr(ref_state, name)
     speed = 0.0
     if name in SPEEDS:
         speed = max(float(getattr(ref_state, f).abs().max())
@@ -75,9 +76,11 @@ def gap(name: str, got: torch.Tensor, ref_state) -> float:
     if name in BOUNDARY_LAYER:
         where = ref_state.z_w >= -ref_state.hbls
     if name in COMPONENTS:
-        return max(_one(name, got[i], ref[i], speed, where)
+        return max(_one(name, _f64(got[i], ref), ref[i].to(torch.float64),
+                        speed, where)
                    for i in range(ref.shape[0]))
-    return _one(name, got, ref, speed, where)
+    ref = ref.to(torch.float64)
+    return _one(name, _f64(got, ref), ref, speed, where)
 
 
 def judge(outputs: dict, ref_state, limits: dict) -> tuple[bool, dict]:

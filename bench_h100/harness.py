@@ -267,6 +267,11 @@ def reference_state(cell: Cell, model: dict, seed: int, device, calls):
     grid, st, frc = cell.maker.derive(ref, cfg, raw, torch.float64,
                                         device)
     del raw
+    # the state rides in a list that lets go of it as a call takes it: a
+    # name bound to it would hold the state a call starts from, its t and
+    # t_prev (14.6 GB at 920x480x60), to the call's end
+    held = [st]
+    del st
     for n in calls:
-        st = ref.run(grid, st, frc, cfg, n)
-    return st
+        held.append(ref.run(grid, held.pop(), frc, cfg, n))
+    return held.pop()

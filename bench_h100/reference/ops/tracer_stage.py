@@ -1,5 +1,5 @@
-"""The fused tracer stage over all tracers, plain PyTorch (a frozen copy
-of `tracer_stage_plain` and its helpers from
+"""The fused tracer stage over the tracers or a block of them, plain
+PyTorch (a frozen copy of `tracer_stage_plain` and its helpers from
 roms_tpu_torch/ops/cuda_tracer.py).
 
     t_new = IMPLICIT( hz_pre*(c_tk*tk + c_sec*t_sec)
@@ -50,7 +50,8 @@ def tracer_stage_plain(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
                        pmn, rmask, umask, vmask, cfg: ModelConfig,
                        scheme: AdvScheme, dtau: float, c_tk: float,
                        c_sec: float, apply_mask: bool, mode: str,
-                       stflx=None, mix=None, own=None):
+                       stflx=None, mix=None, own=None,
+                       tracers: slice = slice(None)):
     """One tracer stage -> t_new (nt, nz, jy, ix).
 
     mode='pred': hz_a=Hz(n), hz_b=flx_div; mode='corr': hz_a=Hz(n),
@@ -58,7 +59,9 @@ def tracer_stage_plain(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
     tracer i uses row min(i, i_t_and_s-1).  mix (corr only): dict with
     diff2 (nt, jy, ix), pmon_u, pnom_v (jy, ix); adds the t3dmix tendency
     built from tk.  own: (own_w, own_e, own_s, own_n) edge ownership, None
-    = single block, which owns every edge."""
+    = single block, which owns every edge.  tracers: which of the
+    configuration's tracers tk, t_sec, stflx and diff2 hold (all by
+    default); it picks their rows of akt."""
     hz_pre, hz_spl, hz_imp = _hz_roles(mode, hz_a, hz_b)
     own = own if own is not None else (None,) * 4
     grid = types.SimpleNamespace(
@@ -72,7 +75,8 @@ def tracer_stage_plain(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
     rhs = rhs - dtau * pmn[None] * (fc[:, 1:] - fc[:, :-1])
     if stflx is not None:
         rhs[:, -1] = rhs[:, -1] + dtau * stflx
-    t_new = vmix.tracer_implicit_all(rhs, hz_imp, vmix.gather_akt(akt, cfg),
+    t_new = vmix.tracer_implicit_all(rhs, hz_imp,
+                                     vmix.gather_akt(akt, cfg, tracers),
                                      wi, pmn, dtau, rmask, cfg,
                                      apply_mask=apply_mask)
     if mix is not None:

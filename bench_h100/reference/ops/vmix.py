@@ -90,9 +90,11 @@ def tracer_implicit_all(t_rhs, hz_col, akt_b, wi, pmn, dtau, rmask,
                            apply_mask)
 
 
-def gather_akt(akt, cfg: ModelConfig):
-    """Per-tracer diffusivity table (nt, nz+1, ..): tracer i uses
-    akt[min(i, iTandS-1)] (reference: src/tracers.F iTandS clamp)."""
-    idx = torch.tensor([min(i, cfg.i_t_and_s - 1) for i in range(cfg.nt)],
+def gather_akt(akt, cfg: ModelConfig, tracers: slice = slice(None)):
+    """Per-tracer diffusivity table (nt, nz+1, ..) of the tracers in
+    `tracers` (all by default): tracer i uses akt[min(i, iTandS-1)]
+    (reference: src/tracers.F iTandS clamp)."""
+    idx = torch.tensor([min(i, cfg.i_t_and_s - 1)
+                        for i in range(cfg.nt)[tracers]],
                        dtype=torch.long, device=akt.device)
     return akt[idx]

@@ -12,6 +12,14 @@ its imports made local to `bench_h100.reference`.
 The optional outputs come back on the state: `upscale` (outward
 boundary tracer fluxes per open edge), `t_budget` and `uv_budget`
 (Hz-weighted per-step terms), each None when its flag is off.
+
+The work that is as wide as the tracer array (the fused stage with its
+t3dmix tendency, the tracer BCs, the halo refresh of the tracers) runs
+over blocks of the tracer axis, each array of a block at most
+TRACER_BLOCK_BYTES.  Every one of those operations is elementwise per
+tracer or a column solve within one tracer, and none sums across
+tracers, so the blocks give the numbers of one pass over every tracer;
+they keep the float64 reference of 34 tracers at 920x480x60 on one card.
 """
 
 from __future__ import annotations
@@ -34,6 +42,46 @@ from bench_h100.reference.parallel.halo import HaloExchange, make_halo_fill, shi
 from bench_h100.reference.state import Forcing, OceanState
 
 AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
+# the most bytes of one (block of tracers, nz, jy, ix) array
+TRACER_BLOCK_BYTES = 2**30
+BRY_TRACERS = ("t_west", "t_east", "t_south", "t_north")
+
+
+def tracer_blocks(nt: int, like: torch.Tensor) -> list:
+    """Slices of the tracer axis, each block of tracers of the shape and
+    dtype of `like` (one tracer) at most TRACER_BLOCK_BYTES."""
+    k = max(1, TRACER_BLOCK_BYTES // (like.numel() * like.element_size()))
+    return [slice(a, min(a + k, nt)) for a in range(0, nt, k)]
+
+
+def over_tracers(fn, nt: int, like: torch.Tensor) -> torch.Tensor:
+    """A new (nt, ...) tensor whose block b of tracers is fn(b)."""
+    out = None
+    for b in tracer_blocks(nt, like):
+        part = fn(b)
+        if out is None:
+            out = part.new_empty((nt,) + tuple(part.shape[1:]))
+        out[b] = part
+    return out
+
+
+def in_tracer_blocks(t: torch.Tensor, fn) -> torch.Tensor:
+    """t with each block b of tracers replaced by fn(b, t[b]), written
+    into t, which the caller made and no state holds."""
+    for b in tracer_blocks(t.shape[0], t[0]):
+        part = t[b]
+        new = fn(b, part)
+        if new is not part:
+            part.copy_(new)
+    return t
+
+
+def bry_block(bry, b: slice):
+    """The boundary data with its tracer arrays cut to the block b."""
+    if bry is None:
+        return None
+    return bry.replace(**{k: getattr(bry, k)[b] for k in BRY_TRACERS
+                          if getattr(bry, k) is not None})
 
 
 def _unsupported(cfg: ModelConfig):
@@ -171,10 +219,13 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     own = (grid.own_w, grid.own_e, grid.own_s, grid.own_n)
     use_kernel = tracer_stage.usable(cfg)
     if use_kernel:
-        t_half = tracer_stage.tracer_stage_plain(
-            state.t, state.t_prev, flx_u, flx_v, hz_n, flx_div, we, wi,
-            akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
-            cfg.ts_pred_scheme, dtau, cf_stp, cf_bak, False, "pred", own=own)
+        t_half = over_tracers(
+            lambda b: tracer_stage.tracer_stage_plain(
+                state.t[b], state.t_prev[b], flx_u, flx_v, hz_n, flx_div, we,
+                wi, akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+                cfg.ts_pred_scheme, dtau, cf_stp, cf_bak, False, "pred",
+                own=own, tracers=b),
+            cfg.nt, state.t[0])
     else:
         # the reference's batched branch (roms_tpu/stepper.py:201-215)
         fx, fe = adv.horiz_tracer_flux(state.t, flx_u, flx_v, grid, cfg,
@@ -225,9 +276,10 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
                       forcing.bry, pred_stage=True)
     v_half = bc.v3dbc(v_half, state.v, state.u, state.v, grid, cfg,
                       forcing.bry, pred_stage=True)
-    t_half = bc.t3dbc(t_half, state.t, state.u, state.v, grid, cfg,
-                      forcing.bry, pred_stage=True)
-    t_half = halo(t_half)
+    t_half = in_tracer_blocks(t_half, lambda b, tb: bc.t3dbc(
+        tb, state.t[b], state.u, state.v, grid, cfg,
+        bry_block(forcing.bry, b), pred_stage=True))
+    t_half = in_tracer_blocks(t_half, lambda b, tb: halo(tb))
 
     # set_HUV1: barotropic mismatch, fluxes at n+1/2 (set_depth.F:252-422)
     h1 = kinematics.set_huv1(u_half, v_half, hz_n,
@@ -454,19 +506,28 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
             load = apply_cdr_all(torch.zeros_like(state.t) if load is None
                                  else load, forcing.cdr, pmn, cfg.dt,
                                  j0=grid.j0, i0=grid.i0)
-        t_sec_c = state.t if load is None else state.t + load / hz_n
-        if src_t is not None:
-            if load is None:
-                t_sec_c = t_sec_c.clone()
-            t_sec_c[cfg.itemp] += src_t / hz_n
-            if src_s is not None:
-                t_sec_c[cfg.isalt] += src_s / hz_n
+
+        def t_sec_c(b):
+            t_sec = state.t[b] if load is None else state.t[b] + load[b] / hz_n
+            if src_t is not None:
+                if load is None:
+                    t_sec = t_sec.clone()
+                for i, src in ((cfg.itemp, src_t), (cfg.isalt, src_s)):
+                    if src is not None and b.start <= i < b.stop:
+                        t_sec[i - b.start] += src / hz_n
+            return t_sec
+
         # t3dmix folded into the corrector kernel
-        t_new = tracer_stage.tracer_stage_plain(
-            t_half, t_sec_c, flx_u_c, flx_v_c, hz_n, hz_new, we, wi,
-            akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
-            cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr",
-            stflx=forcing.stflx, mix=mix, own=own)
+        t_new = over_tracers(
+            lambda b: tracer_stage.tracer_stage_plain(
+                t_half[b], t_sec_c(b), flx_u_c, flx_v_c, hz_n, hz_new, we,
+                wi, akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
+                cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr",
+                stflx=forcing.stflx[b],
+                mix=None if mix is None else dict(mix,
+                                                  diff2=mix["diff2"][b]),
+                own=own, tracers=b),
+            cfg.nt, state.t[0])
     else:
         # the reference's batched branch (roms_tpu/stepper.py:535-607)
         fx, fe = adv.horiz_tracer_flux(t_half, flx_u_c, flx_v_c, grid, cfg,
@@ -563,12 +624,14 @@ def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
     """Post-corrector tail: tracer BCs -> BGC column physics -> halo
     refresh -> final EOS -> state assembly (reference: main.F:469-490).
     The t3dmix tendency is already in t_new."""
-    t_new = bc.t3dbc(t_new, state.t, u_half, v_half, grid, cfg,
-                     forcing.bry, pred_stage=False)
+    t_new = in_tracer_blocks(t_new, lambda b, tb: bc.t3dbc(
+        tb, state.t[b], u_half, v_half, grid, cfg, bry_block(forcing.bry, b),
+        pred_stage=False))
     if cfg.bgc_model != "none" and cfg.n_bgc > 0:
         t_new = bgc_update(t_new, state, forcing, grid, cfg, zr_new, zw_new,
                            hz_new)
-    t_new = halo(t_new)  # (reference: step3d_t_ISO.F:1167-1177)
+    # (reference: step3d_t_ISO.F:1167-1177)
+    t_new = in_tracer_blocks(t_new, lambda b, tb: halo(tb))
 
     # final density for diagnostics/output (reference: main.F:479)
     eos_new = eos.rho_eos(t_new, zr_new, zw_new, hz_new, grid.rmask, cfg)

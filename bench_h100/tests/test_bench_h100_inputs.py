@@ -9,7 +9,8 @@ from bench_h100 import harness, inputs
 from roms_tpu_torch.cases import bench_production, filament
 
 SMALL = {"filament": dict(nx=32, ny=32, nz=8),
-         "production": dict(nx=24, ny=16, nz=8, nt=4)}
+         "production": dict(nx=24, ny=16, nz=8, nt=4),
+         "production-full": dict(nx=24, ny=16, nz=8, nt=4)}
 SEEDS = (0, 2**31 + 7, 98765432101)
 
 
@@ -41,19 +42,22 @@ def test_other_seed_other_inputs(name):
     for i in range(len(raws)):
         for j in range(i + 1, len(raws)):
             assert not torch.equal(raws[i]["t"], raws[j]["t"])
-    if name == "production":
+    if name.startswith("production"):
         assert not torch.equal(raws[0]["sustr"], raws[1]["sustr"])
         # the passive tracers are perturbed too
         assert not torch.equal(raws[0]["t"][3], raws[1]["t"][3])
 
 
 @pytest.mark.parametrize("name,case", [("filament", filament),
-                                       ("production", bench_production)])
+                                       ("production", bench_production),
+                                       ("production-full", bench_production)])
 def test_unperturbed_inputs_are_the_case(name, case, monkeypatch):
     b, model = input_module(name), small_model(name)
+    # the module that defines raw_inputs: production-full imports it
+    defs = b.raw_inputs.__globals__
     for attr in ("T_PERTURB", "TRACER_PERTURB", "WIND_SHIFT"):
-        if hasattr(b, attr):
-            monkeypatch.setattr(b, attr, 0.0)
+        if attr in defs:
+            monkeypatch.setitem(defs, attr, 0.0)
     prog = inputs.side(inputs.PROGRAM)
     cfg = inputs.model_config(prog, model)
     _, st, frc = b.derive(prog, cfg, b.raw_inputs(model, 5, "cpu"),
@@ -73,4 +77,5 @@ def test_perturbation_is_small(name):
     b, model = input_module(name), small_model(name)
     t1 = b.raw_inputs(model, 1, "cpu")["t"]
     t2 = b.raw_inputs(model, 2, "cpu")["t"]
-    assert float((t1[0] - t2[0]).abs().max()) <= 2 * b.T_PERTURB
+    assert float((t1[0] - t2[0]).abs().max()) <= (
+        2 * b.raw_inputs.__globals__["T_PERTURB"])

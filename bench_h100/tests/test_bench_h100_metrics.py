@@ -10,7 +10,8 @@ import torch
 
 from bench_h100 import harness, inputs, peaks, readers, trace
 
-CELLS = ("filament-512x256x60", "production-384x192x60")
+CELLS = ("filament-512x256x60", "production-384x192x60",
+         "production-920x480x60")
 
 
 def synthetic_trace():

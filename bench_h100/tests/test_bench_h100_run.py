@@ -16,7 +16,8 @@ import pytest
 from bench_h100 import control, harness
 
 SMALL = {"filament-512x256x60": dict(nx=32, ny=32, nz=8),
-         "production-384x192x60": dict(nx=24, ny=16, nz=8, nt=4)}
+         "production-384x192x60": dict(nx=24, ny=16, nz=8, nt=4),
+         "production-920x480x60": dict(nx=24, ny=16, nz=8, nt=4)}
 SECONDS = 1.0
 SEED = 2**31 + 12345
 
