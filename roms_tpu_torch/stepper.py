@@ -15,7 +15,8 @@ branch, whose river flux fix sits inside the stencil.  Those gates decide
 the paths: never the device, the dtype or a build.  Each wrapper launches its CUDA kernel on the card and
 runs its plain version on the CPU.  Point loads (pipes, mCDR releases)
 enter both tracer paths; the BGC column physics (`bgc_update`) follows
-the corrector's boundary conditions.
+the corrector's boundary conditions, inside the span `roms.bgc`, and
+`bgc_stats` counts its calls and the host seconds of each.
 
 The rotated (isoneutral) biharmonic, the upscale capture and the tracer
 budget live on the batched branch only, as `cuda_tracer.usable` says.
@@ -27,6 +28,9 @@ tracer paths.  The optional outputs come back on the state: `upscale`
 """
 
 from __future__ import annotations
+
+import time
+from collections import deque
 
 import torch
 
@@ -47,6 +51,10 @@ from roms_tpu_torch.parallel.halo import HaloExchange, make_halo_fill, shift
 from roms_tpu_torch.state import Forcing, OceanState
 
 AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
+
+# calls of `bgc_update`, traced or not, and the host seconds of the most
+# recent ones (time.perf_counter around the call, no synchronize)
+bgc_stats = {"calls": 0, "host_s": deque(maxlen=4096)}
 
 
 def _unsupported(cfg: ModelConfig):
@@ -124,7 +132,7 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     fast-time weights.  Under `monitor.tracing` its phases are spans:
     roms.predictor, roms.corrector_3d, roms.fast_loop (opened by
     `barotropic.fast_loop`), roms.uv2, roms.tracer_corrector and
-    roms.finish."""
+    roms.finish, with roms.bgc inside it where a BGC engine runs."""
     missing = _unsupported(cfg)
     if missing:
         raise NotImplementedError(
@@ -598,8 +606,12 @@ def _finish_tracers(state, forcing, grid, cfg, halo, t_new, u_half, v_half,
     t_new = bc.t3dbc(t_new, state.t, u_half, v_half, grid, cfg,
                      forcing.bry, pred_stage=False)
     if cfg.bgc_model != "none" and cfg.n_bgc > 0:
-        t_new = bgc_update(t_new, state, forcing, grid, cfg, zr_new, zw_new,
-                           hz_new)
+        with span("roms.bgc"):
+            t0 = time.perf_counter()
+            t_new = bgc_update(t_new, state, forcing, grid, cfg, zr_new,
+                               zw_new, hz_new)
+            bgc_stats["calls"] += 1
+            bgc_stats["host_s"].append(time.perf_counter() - t0)
     t_new = halo(t_new)  # (reference: step3d_t_ISO.F:1167-1177)
 
     # final density for diagnostics/output (reference: main.F:479)

@@ -3,13 +3,14 @@ CPU in float64:
 
 (a) tracing off records nothing, and `span` hands out one shared no-op
     context;
-(b) with tracing on, a step of a small doubly periodic Filament and of a
-    small production-physics grid with four open boundaries, through
+(b) with tracing on, a step of a small doubly periodic Filament, of a
+    small production-physics grid with four open boundaries and of the
+    benchmark's bgc_real inputs (MARBL, rivers, tides), through
     `driver.run` and through `driver.run_distributed` on a 1x1 gloo mesh,
     records per step one roms.step, one of each phase, one
     roms.fast_loop, nfast roms.fast.substep and roms.fast.halo and
-    2 * nfast roms.fast.bc2d, and the driver's roms.forcing, roms.diag
-    and roms.output once per call;
+    2 * nfast roms.fast.bc2d, bgc_real one roms.bgc, and the driver's
+    roms.forcing, roms.diag and roms.output once per call;
 (c) under torch.profiler the spans are record_function ranges with the
     names and counts of the Timers sink, and each child lies inside its
     parent in host time;
@@ -21,10 +22,14 @@ CPU in float64:
     no CUDA runtime call.
 """
 
+import dataclasses
+from types import SimpleNamespace
+
 import pytest
 import torch
 import torch.distributed as tdist
 
+from bench_h100 import harness, inputs
 from roms_tpu_torch import monitor, profile_step
 from roms_tpu_torch.cases import bench_production as tbp
 from roms_tpu_torch.cases import filament as tfilament
@@ -42,10 +47,29 @@ PARENT = {**{p: "roms.step" for p in PHASES},
           "roms.fast.substep": "roms.fast_loop",
           "roms.fast.bc2d": "roms.fast.substep",
           "roms.fast.halo": "roms.fast.substep"}
+
+
+def _bgc_real_setup(cfg, dtype, device):
+    """The benchmark's bgc_real inputs (MARBL, rivers, tides, sponge) at
+    the size of `cfg`."""
+    cell = harness.load_cell("uswc-bgc_real")
+    model = dataclasses.asdict(cfg)
+    raw = cell.maker.raw_inputs(model, 7, device)
+    return cell.maker.derive(inputs.side(inputs.PROGRAM), cfg, raw, dtype,
+                             torch.device(device))
+
+
+def _bgc_real_config():
+    model = dict(harness.load_cell("uswc-bgc_real").config["model"],
+                 nx=12, ny=10, nz=4)
+    return inputs.model_config(inputs.side(inputs.PROGRAM), model)
+
+
 CASES = {
     "filament": (tfilament,
                  tfilament.config().replace(nx=16, ny=12, nz=4, ndtfast=6)),
     "production": (tbp, tbp.config(nx=10, ny=8, nz=4, nt=3)),
+    "bgc_real": (SimpleNamespace(setup=_bgc_real_setup), _bgc_real_config()),
 }
 
 
@@ -119,6 +143,8 @@ def test_span_counts_per_step(case, how, tmp_path):
             "roms.forcing": nsteps, "roms.diag": nsteps + 1,
             "roms.output": nsteps + 1,
             **{p: nsteps for p in PHASES}}
+    if cfg.bgc_model != "none":
+        want["roms.bgc"] = nsteps     # inside roms.finish
     assert timers.calls == want
     assert set(timers.phases) == set(want)
     for child, parent in PARENT.items():
