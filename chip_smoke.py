@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout
+Builds the port's four CUDA kernels from the sources in this checkout
 and drives its main paths through `roms_tpu_torch.driver.run` (the
 real-data cases through `Experiment.run`, the command line through
 `roms_tpu_torch.__main__.main`, the rank mesh through
@@ -13,21 +13,25 @@ is nonzero (the whole script takes about 9 minutes on an H100):
 
   0. device: a CUDA device is required; prints its name and the
      `nvidia-smi` name/power limit line; TF32 off.
-  1. build: nvcc builds the three kernels for sm_90a, one process per
+  1. build: nvcc builds the four kernels for sm_90a, one process per
      source, all started together; prints each kernel's registers and
      spills (`-Xptxas -v`) and each kernel's launch configuration and
      occupancy (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`) at the
      production and Filament widths (nz=60, float32).
   2. kernel vs plain: each kernel against its plain PyTorch version on the
      card, on the random-input harnesses of tests/test_pallas_tracer.py,
-     tests/test_pallas_solve.py and tests/test_pallas_kpp.py, in float64
+     tests/test_pallas_solve.py and tests/test_pallas_kpp.py (and the
+     momentum r.h.s. on `_harness.uv_rhs_inputs`), in float64
      (rtol = atol = 1e-12) and float32 (rtol 1e-5, atol 1e-5*max|ref|);
      the tracer cases cover all three schemes in both stages, 34 tracers
      at nz=60, the kernel's largest nz, and planes that are not whole
      tiles, and partial edge ownership in both stages as a mesh block
      has it (west and north owned, and east and south); the solve and KPP
      cases cover nz=60, each kernel's largest nz and ragged planes, and
-     KPP also partial edge ownership and a grid periodic in i only.
+     KPP also partial edge ownership and a grid periodic in i only; the
+     momentum r.h.s. both schemes on production's and Filament's flags,
+     partial ownership, ragged planes, nz=60 and its largest nz, whole
+     arrays (ghost lines included).
   3. oracle: 20 Filament steps at 64x64x32 in float64 against
      tests/data/filament_oracle.txt, tracer and solve kernels launched.
   4. production in float64: bench_production at 48x32x16, nt=4, 3 steps
@@ -37,9 +41,10 @@ is nonzero (the whole script takes about 9 minutes on an H100):
      bench_production.STEP_TOL/CONDITIONED_TOL that
      tests/test_torch_production.py holds the port to.
   5. Filament full width: 512x256x60 float32, 2 warm-up + 10 timed steps,
-     all finite; the tracer (corrector and predictor stages) and solve
-     kernels timed against their plain versions at that shape with CUDA
-     events, with each kernel's achieved TB/s, registers and occupancy.
+     all finite; the tracer (corrector and predictor stages), solve and
+     momentum r.h.s. kernels timed against their plain versions at that
+     shape with CUDA events, with each kernel's achieved TB/s, registers
+     and occupancy.
   6. production full width: bench_production at 384x192x60, nt=34,
      float32 (bench.py:66), 2 warm-up + 10 timed steps, all finite, 2 KPP,
      2 tracer and 4 solve launches a step; each kernel timed against its
@@ -182,7 +187,10 @@ run, held to none), and holds them to what the configuration's gates
 select: the tracer kernel twice a step where
 `cuda_tracer.usable` admits the configuration (not for river sources),
 the solve four times, KPP twice where `cuda_kpp.usable` admits the
-configuration (KPP without a mesh block's pad).  The line before the last
+configuration (KPP without a mesh block's pad); `full_width` also holds
+the momentum r.h.s. to two launches and no plain call a step where
+`cuda_uv_rhs.usable` admits the configuration (one of each with the
+momentum budget, whose split keeps the plain version).  The line before the last
 is a JSON object {"kernels": [...]} whose launches and times come from
 phase 6; the last line is {"ok": true, "device": {...}}.  Imports the
 port, torch and numpy: nothing of JAX and nothing of the JAX package.
@@ -272,6 +280,11 @@ def phase_build():
             + occupancy_text(cuda_solve.occupancy(torch.float32, 60)))
     say("[1 build]   kpp_vmix production f32 nz=60: "
         + kpp_occupancy_text(cuda_kpp.occupancy(torch.float32, 60)))
+    # the momentum r.h.s. predicts with CENTERED4, corrects with UPSTREAM3
+    from roms_tpu_torch.ops import cuda_uv_rhs
+    for scheme in (AdvScheme.CENTERED4, AdvScheme.UPSTREAM3):
+        say(f"[1 build]   uv_rhs {scheme.name} f32 nz=60: " + occupancy_text(
+            cuda_uv_rhs.occupancy(torch.float32, 60, scheme)))
 
 
 def occupancy_text(o):
@@ -381,6 +394,16 @@ TRACER_CASES = ("corr_upstream3", "corr_centered4", "corr_akima",
 SOLVE_CASES = (("drag", {}), ("no_drag", {}), ("drag_ragged", RAGGED),
                ("drag_nz60", dict(nz=60)),
                ("drag_nz_max", None))     # the kernel's deepest column
+# (name, harness options, edge ownership) of the momentum r.h.s.
+UV_CASES = (("production", {}, None),
+            ("filament", dict(curvgrid=False, ew_periodic=True,
+                              ns_periodic=True), None),
+            ("own_wn", dict(seed=2), (True, False, False, True)),
+            ("own_es", dict(masking=False, seed=3),
+             (False, True, True, False)),
+            ("ragged", dict(RAGGED, seed=5), None),
+            ("nz60", dict(nx=40, ny=24, nz=60, seed=6), None),
+            ("nz_max", dict(nx=20, ny=10, nz=None, seed=7), None))
 KPP_CASES = (("salinity", True), ("salinity", False), ("no_salinity", True),
              ("no_salinity", False), ("no_mask", False),
              ("periodic", False), ("ragged", False), ("nz60", False),
@@ -395,9 +418,10 @@ def compare(got, ref, dtype, periodic, what, floor=None):
     floor: the plain version's own round-off (see `roundoff_floor`); the
     absolute tolerance is at least four times it."""
     if isinstance(got, tuple):
+        names = getattr(ref, "_fields", range(len(ref)))
         return max(compare(g, r, dtype, periodic, f"{what}.{n}",
                            None if floor is None else floor[n])
-                   for g, r, n in zip(got, ref, ref._fields))
+                   for g, r, n in zip(got, ref, names))
     sl = (Ellipsis,) if periodic else (Ellipsis, slice(1, -1), slice(1, -1))
     g = got[sl].double()
     r = ref[sl].double()
@@ -414,8 +438,28 @@ def compare(got, ref, dtype, periodic, what, floor=None):
     return float(err.max())
 
 
+def uv_case(kw, own, dtype, device):
+    """(cfg, (u, v, flx_u, flx_v, hz, we), grid) of one momentum r.h.s. on
+    `_harness.uv_rhs_inputs` (nz=None: the kernel's largest)."""
+    from types import SimpleNamespace
+    from roms_tpu_torch.ops import _harness, cuda_uv_rhs
+    if kw.get("nz", 0) is None:
+        kw = dict(kw, nz=cuda_uv_rhs.NZ_MAX)
+    cfg, d = _harness.uv_rhs_inputs(**kw)
+    x = on_card(d, dtype, device)
+    own = own or (None,) * 4
+    grid = SimpleNamespace(**{k: x[k] for k in ("fomn", "dndx", "dmde",
+                                                "umask", "vmask")},
+                           own_w=own[0], own_e=own[1], own_s=own[2],
+                           own_n=own[3])
+    return cfg, tuple(x[k] for k in ("u", "v", "flx_u", "flx_v", "hz",
+                                     "we")), grid
+
+
 def phase_kernels(device):
-    from roms_tpu_torch.ops import _harness, cuda_kpp, cuda_solve, cuda_tracer
+    from roms_tpu_torch.config import AdvScheme
+    from roms_tpu_torch.ops import (_harness, cuda_kpp, cuda_solve,
+                                    cuda_tracer, cuda_uv_rhs)
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         for name in TRACER_CASES:
@@ -452,6 +496,17 @@ def phase_kernels(device):
                           f"kpp_vmix {name} first_step={first} {tag}")
             say(f"[2 kernels] kpp_vmix {name:11s} first_step={first!s:5s} "
                 f"{tag}: max abs err {err:.3e}")
+        for name, kw, own in UV_CASES:
+            for scheme in (AdvScheme.CENTERED4, AdvScheme.UPSTREAM3):
+                cfg, args, grid = uv_case(kw, own, dtype, device)
+                got = cuda_uv_rhs.uv_rhs(*args, grid, cfg, scheme)
+                ref = cuda_uv_rhs.uv_rhs_plain(*args, grid, cfg, scheme)
+                torch.cuda.synchronize()
+                # the kernel reproduces the ghost lines too: whole arrays
+                err = compare(got, ref, dtype, True,
+                              f"uv_rhs {name} {scheme.name} {tag}")
+                say(f"[2 kernels] uv_rhs {name:8s} {scheme.name:9s} {tag}: "
+                    f"max abs err {err:.3e}")
 
 
 # ------------------------------------------------------------------ counts
@@ -667,8 +722,10 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
     """Each kernel of the step against its plain version on the state of a
     full-width run, at the main path's shapes, with the t3dmix inputs the
     corrector reads (`stepper.tracer_mix`); returns the JSON rows of the
-    kernels the configuration's gates select."""
-    from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer, eos, vmix
+    kernels the configuration's gates select.  counts: launches of
+    (tracer, solve, KPP, momentum r.h.s.) in the run."""
+    from roms_tpu_torch.ops import (cuda_kpp, cuda_solve, cuda_tracer,
+                                    cuda_uv_rhs, eos, vmix)
     from roms_tpu_torch.ops.kinematics import hz_u
     from roms_tpu_torch.parallel.halo import shift
     from roms_tpu_torch.stepper import AM3_CRV, tracer_mix
@@ -721,6 +778,19 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
               cuda_solve.momentum_implicit_plain, so_args, so_kw, so_ops,
               "roms_tpu_torch/csrc/momentum_solve.cu",
               "roms_tpu/ops/pallas_solve.py:66", counts[1])]
+    if cuda_uv_rhs.usable(cfg):
+        # the corrector's call (UPSTREAM3) and the predictor's (CENTERED4)
+        # on the run's final state; lower count of arithmetic per (level,
+        # column): both components' fluxes, Coriolis and spline sweeps
+        uv_ops = 150 * nz * col
+        for tag, scheme in (("", cfg.uv_corr_scheme),
+                            ("_pred", cfg.uv_pred_scheme)):
+            occ["uv_rhs" + tag] = cuda_uv_rhs.occupancy(dtype, nz, scheme)
+            cases.append((
+                "uv_rhs" + tag, cuda_uv_rhs.uv_rhs, cuda_uv_rhs.uv_rhs_plain,
+                (st.u, st.v, st.flx_u, st.flx_v, st.hz, st.we, grid, cfg,
+                 scheme), {}, uv_ops, "roms_tpu_torch/csrc/uv_rhs.cu",
+                "none (roms_tpu/stepper.py:_uv_rhs, XLA)", counts[3]))
     if cuda_tracer.usable(cfg):
         # both tracer rows are the one kernel and its one launch count
         cases[:0] = [("tracer_stage", cuda_tracer.tracer_stage,
@@ -842,8 +912,10 @@ def full_width(start, warm, nsteps, what, timings, hook=None):
             spent.append(time.perf_counter() - t0)
             return last[0]
         exp.forcing_fn = forcing_fn
+    from roms_tpu_torch.ops import cuda_uv_rhs
     try:
         reset_counts()
+        cuda_uv_rhs.uv_rhs.launches = cuda_uv_rhs.uv_rhs.plain_calls = 0
         st, _ = exp.run(nsteps=warm + nsteps, collect_diag=False,
                         step_hook=mark)
         torch.cuda.synchronize()
@@ -852,6 +924,14 @@ def full_width(start, warm, nsteps, what, timings, hook=None):
         if exp.fileset is not None:
             exp.fileset.close()
     check_counts(counts, warm + nsteps, cfg, what)
+    # the momentum r.h.s.: two calls a step, the corrector's on the plain
+    # version with the momentum budget's split, both where the gate refuses
+    uv = (cuda_uv_rhs.uv_rhs.launches, cuda_uv_rhs.uv_rhs.plain_calls)
+    split = int(cfg.uv_diagnostics) if cuda_uv_rhs.usable(cfg) else 2
+    expected = ((2 - split) * (warm + nsteps), split * (warm + nsteps))
+    if uv != expected:
+        raise AssertionError(f"{what}: uv_rhs launches, plain calls = {uv}, "
+                             f"expected {expected}")
     check_finite(st, what)
     wall = clock[warm + nsteps] - clock[warm]
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -865,11 +945,12 @@ def full_width(start, warm, nsteps, what, timings, hook=None):
         f"{1e3 * wall / nsteps:.3f} ms/step, "
         f"{cfg.nx * cfg.ny * cfg.nz * nsteps / wall:.6e} gridpoint-steps/s "
         f"over {nsteps} steps after {warm} warm-up; {frc}launches tracer "
-        f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}; state finite; "
+        f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}, uv_rhs {uv[0]} "
+        f"(plain calls {uv[1]}); state finite; "
         f"peak device memory {peak:.3f} GiB")
     # the kernels are timed on the forcing of the last step
-    rows = kernel_timings(exp.grid, st, last[0], cfg, what, counts) \
-        if timings else None
+    rows = kernel_timings(exp.grid, st, last[0], cfg, what,
+                          counts + (uv[0],)) if timings else None
     return rows, st, exp
 
 

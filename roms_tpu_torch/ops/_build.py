@@ -32,7 +32,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "roms_tpu_torch" / "csrc"
 BUILD = ROOT / "build"
-SOURCES = ("tracer_stage.cu", "momentum_solve.cu", "kpp_vmix.cu")
+SOURCES = ("tracer_stage.cu", "momentum_solve.cu", "kpp_vmix.cu",
+           "uv_rhs.cu")
 HEADERS = ("kernel_util.cuh",)  # included by the sources: hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +44,7 @@ _TRACER_ARGS = [_PTR] * 18 + [_INT] * 17 + [_DBL] * 3 + [_PTR]
 _SOLVE_ARGS = [_PTR] * 8 + [_INT] * 3 + [_DBL] + [_PTR]
 _KPP_ARGS = [ctypes.POINTER(_PTR), ctypes.POINTER(_INT),
              ctypes.POINTER(_DBL), _PTR]
+_UV_RHS_ARGS = [_PTR] * 13 + [_INT] * 16 + [_PTR]
 ENTRY_POINTS = {
     "roms_tracer_stage_f32": _TRACER_ARGS,
     "roms_tracer_stage_f64": _TRACER_ARGS,
@@ -53,6 +55,9 @@ ENTRY_POINTS = {
     "roms_kpp_vmix_f32": _KPP_ARGS,
     "roms_kpp_vmix_f64": _KPP_ARGS,
     "roms_kpp_vmix_occupancy": [_INT] * 2 + [ctypes.POINTER(_INT)],
+    "roms_uv_rhs_f32": _UV_RHS_ARGS,
+    "roms_uv_rhs_f64": _UV_RHS_ARGS,
+    "roms_uv_rhs_occupancy": [_INT] * 5 + [ctypes.POINTER(_INT)],
 }
 
 

@@ -1,9 +1,9 @@
-"""Random inputs for the three kernel modules, made with numpy from a
-seed.
+"""Random inputs for the kernel modules, made with numpy from a seed.
 
 These are the harnesses of tests/test_pallas_tracer.py:_setup,
 tests/test_pallas_solve.py:_setup and tests/test_pallas_kpp.py:_setup
-(default shapes nx=24, ny=18, nz=10), shared by tests/test_torch_*.py,
+(default shapes nx=24, ny=18, nz=10), and one of the momentum r.h.s. at
+the same shapes, shared by tests/test_torch_*.py,
 which feed them to both packages, and chip_smoke.py, which holds each
 CUDA kernel against its plain version on the card.  Each returns (cfg,
 dict of float64 numpy arrays) on the padded (jy, ix) = (ny + 4, nx + 4)
@@ -105,4 +105,30 @@ def kpp_inputs(nx=24, ny=18, nz=10, salinity=True, masking=True, seed=0,
     d["vmask"] = rmask * np.roll(rmask, 1, axis=0)
     d["hbls"] = 20.0 + np.abs(r(jy, ix))
     d["hbbl"] = 5.0 + np.abs(r(jy, ix))
+    return cfg, d
+
+
+def uv_rhs_inputs(nx=24, ny=18, nz=10, masking=True, curvgrid=True,
+                  ew_periodic=False, ns_periodic=False, uv_cor=True,
+                  uv_adv=True, seed=0):
+    """Inputs of one momentum r.h.s. (`cuda_uv_rhs.uv_rhs`): u, v, the
+    volume fluxes, Hz, We and the grid's Coriolis parameter, metric terms
+    and masks."""
+    cfg = ModelConfig(nx=nx, ny=ny, nz=nz, masking=masking,
+                      curvgrid=curvgrid, ew_periodic=ew_periodic,
+                      ns_periodic=ns_periodic, uv_cor=uv_cor, uv_adv=uv_adv)
+    jy, ix = ny + 4, nx + 4
+    rng = np.random.default_rng(seed)
+
+    def r(*sh):
+        return rng.standard_normal(sh)
+
+    d = dict(u=0.1 * r(nz, jy, ix), v=0.1 * r(nz, jy, ix),
+             flx_u=0.5 * r(nz, jy, ix), flx_v=0.5 * r(nz, jy, ix),
+             hz=5.0 + 0.5 * np.abs(r(nz, jy, ix)),
+             we=0.05 * r(nz + 1, jy, ix), fomn=1.0 + 0.1 * r(jy, ix),
+             dndx=0.1 * r(jy, ix), dmde=0.1 * r(jy, ix))
+    rmask = (rng.random((jy, ix)) > 0.15).astype(np.float64)
+    d["umask"] = rmask * np.roll(rmask, 1, axis=1)
+    d["vmask"] = rmask * np.roll(rmask, 1, axis=0)
     return cfg, d

@@ -7,9 +7,12 @@ All four implicit momentum solves go through `cuda_solve.momentum_implicit`
 and, under LMD_KPP, both vertical-mixing updates through
 `cuda_kpp.vmix_update` for every configuration that `cuda_kpp.usable`
 admits (not a mesh block's padded grid, whose updates take the plain
-version, as the JAX package's gate does).  Both tracer stages go through
-`cuda_tracer.tracer_stage` for every configuration that
-`cuda_tracer.usable` admits; the others (river sources, the options of
+version, as the JAX package's gate does).  Both momentum r.h.s. calls
+(`_uv_rhs`) go through `cuda_uv_rhs.uv_rhs` where `cuda_uv_rhs.usable`
+admits the configuration, the momentum budget's split excepted.  Both
+tracer stages go through `cuda_tracer.tracer_stage` for every
+configuration that `cuda_tracer.usable` admits; the others (river
+sources, the options of
 the batched branch, a padded grid) take the reference's batched tracer
 branch, whose river flux fix sits inside the stencil.  Those gates decide
 the paths: never the device, the dtype or a build.  Each wrapper launches its CUDA kernel on the card and
@@ -43,8 +46,8 @@ from roms_tpu_torch.grid import Grid
 from roms_tpu_torch.monitor import span
 from roms_tpu_torch.ops import advection as adv
 from roms_tpu_torch.ops import (barotropic, bc, cuda_kpp, cuda_solve,
-                                cuda_tracer, eos, hmix, isoneutral,
-                                kinematics, rivers, vmix)
+                                cuda_tracer, cuda_uv_rhs, eos, hmix,
+                                isoneutral, kinematics, rivers, vmix)
 from roms_tpu_torch.ops import prsgrd as prsgrd_mod
 from roms_tpu_torch.ops.kinematics import hz_u, hz_v
 from roms_tpu_torch.parallel.halo import HaloExchange, make_halo_fill, shift
@@ -102,28 +105,18 @@ def _kpp_sources(state: OceanState, forcing: Forcing, ghat, wi,
 def _uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig, scheme,
             parts: bool = False):
     """Coriolis + horizontal + vertical momentum advection r.h.s.
-    (reference: compute_horiz_rhs_uv_terms.h + compute_vert_rhs_uv_terms.h).
+    (reference: compute_horiz_rhs_uv_terms.h + compute_vert_rhs_uv_terms.h):
+    `cuda_uv_rhs.uv_rhs` where `cuda_uv_rhs.usable` admits the
+    configuration, else its plain version.
 
-    With parts=True also returns the Coriolis part (cori_u, cori_v) for
-    the momentum budget (reference: diagnostics.F icori/iadv)."""
-    ru = torch.zeros_like(u)
-    rv = torch.zeros_like(v)
-    rc_u = rc_v = None
-    if cfg.uv_cor or (cfg.curvgrid and cfg.uv_adv):
-        rc_u, rc_v = adv.coriolis_rhs(u, v, hz, grid, cfg)
-        ru = ru + rc_u
-        rv = rv + rc_v
-    if cfg.uv_adv:
-        ra_u, ra_v = adv.horiz_uv_adv_rhs(u, v, flx_u, flx_v, grid, cfg,
-                                          scheme)
-        ru = ru + ra_u
-        rv = rv + ra_v
-        ru = ru + adv.vert_uv_rhs_spline(u, hz, we, grid.umask, grid, cfg, "u")
-        rv = rv + adv.vert_uv_rhs_spline(v, hz, we, grid.vmask, grid, cfg, "v")
-    if parts:
-        return (ru, rv, torch.zeros_like(u) if rc_u is None else rc_u,
-                torch.zeros_like(v) if rc_v is None else rc_v)
-    return ru, rv
+    With parts=True (the momentum budget, which keeps the plain version)
+    also returns the Coriolis part (cori_u, cori_v)
+    (reference: diagnostics.F icori/iadv)."""
+    if parts or not cuda_uv_rhs.usable(cfg):
+        cuda_uv_rhs.uv_rhs.plain_calls += 1
+        return cuda_uv_rhs.uv_rhs_plain(u, v, flx_u, flx_v, hz, we, grid,
+                                        cfg, scheme, parts=parts)
+    return cuda_uv_rhs.uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg, scheme)
 
 
 def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,

@@ -1,9 +1,10 @@
 """The port's kernel modules against the JAX package's Pallas kernels.
 
-On the CPU `cuda_tracer.tracer_stage` and `cuda_solve.momentum_implicit`
-take their plain PyTorch versions (a CPU tensor never reaches a kernel);
-the Pallas kernels run in interpret mode, as tests/test_pallas_*.py run
-them.  Inputs are the random harnesses of those files, made with numpy
+On the CPU `cuda_tracer.tracer_stage`, `cuda_solve.momentum_implicit`
+and `cuda_uv_rhs.uv_rhs` take their plain PyTorch versions (a CPU tensor
+never reaches a kernel); the Pallas kernels run in interpret mode, as
+tests/test_pallas_*.py run them, and the momentum r.h.s. is held to the
+JAX package's `stepper._uv_rhs`, ghost lines included.  Inputs are the random harnesses of those files, made with numpy
 from a seed (`roms_tpu_torch.ops._harness`).  Tolerance rtol = atol =
 1e-12 in float64, the bound of tests/test_pallas_*.py; the CUDA kernels themselves are held to their
 plain versions on the card by chip_smoke.py (nvcc contracts a*b+c into
@@ -12,17 +13,20 @@ periodic grid the outermost ghost lines are excluded, the rule of
 tests/test_pallas_tracer.py:_close.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from roms_tpu import stepper as jstepper
 from roms_tpu.config import AdvScheme
 from roms_tpu.ops import pallas_solve, pallas_tracer
 
 from roms_tpu_torch.config import AdvScheme as TAdvScheme
 from roms_tpu_torch.config import ModelConfig as TModelConfig
-from roms_tpu_torch.ops import _harness, cuda_solve, cuda_tracer
+from roms_tpu_torch.ops import _harness, cuda_solve, cuda_tracer, cuda_uv_rhs
 
 from torch_helpers import jax_cfg
 
@@ -139,6 +143,58 @@ def test_momentum_solve_matches_pallas(drag):
     assert cuda_solve.momentum_implicit.launches == before
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
+
+
+# (scheme, harness options, edge ownership (own_w, own_e, own_s, own_n)):
+# each scheme with and without masking and the CURVGRID terms, doubly and
+# singly periodic grids, a mesh block's partial ownership on the west and
+# north edges and on the east and south, Coriolis alone, advection alone
+UV_CASES = {
+    "centered4": (AdvScheme.CENTERED4, {}, None),
+    "upstream3": (AdvScheme.UPSTREAM3, {}, None),
+    "akima_advects_as_centered4": (AdvScheme.AKIMA, {}, None),
+    "centered4_periodic_plain": (
+        AdvScheme.CENTERED4, dict(masking=False, curvgrid=False,
+                                  ew_periodic=True, ns_periodic=True), None),
+    "upstream3_periodic": (
+        AdvScheme.UPSTREAM3, dict(ew_periodic=True, ns_periodic=True), None),
+    "upstream3_ew_periodic_unmasked": (
+        AdvScheme.UPSTREAM3, dict(masking=False, ew_periodic=True, seed=1),
+        None),
+    "upstream3_own_wn": (AdvScheme.UPSTREAM3, dict(seed=2),
+                         (True, False, False, True)),
+    "centered4_own_es": (AdvScheme.CENTERED4, dict(curvgrid=False, seed=3),
+                         (False, True, True, False)),
+    "coriolis_only": (AdvScheme.UPSTREAM3, dict(uv_adv=False), None),
+    "advection_only": (AdvScheme.UPSTREAM3,
+                       dict(uv_cor=False, curvgrid=False), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UV_CASES))
+def test_uv_rhs_matches_jax_stepper(case):
+    """Five levels: the JAX chain runs op by op, its spline a Python loop
+    over the levels (the card's tests take nz up to NZ_MAX)."""
+    scheme, kw, own = UV_CASES[case]
+    cfg, d = _harness.uv_rhs_inputs(NX, NY, NZ, **kw)
+    own = own or (None,) * 4
+    names = ("u", "v", "flx_u", "flx_v", "hz", "we")
+    grids = [types.SimpleNamespace(
+        **{k: _both(k, d)[n] for k in ("fomn", "dndx", "dmde", "umask",
+                                       "vmask")},
+        own_w=own[0], own_e=own[1], own_s=own[2], own_n=own[3])
+        for n in (0, 1)]
+    ref = jstepper._uv_rhs(*[_both(k, d)[0] for k in names], grids[0],
+                           jax_cfg(cfg), scheme)
+    before = cuda_uv_rhs.uv_rhs.launches, cuda_uv_rhs.uv_rhs.plain_calls
+    got = cuda_uv_rhs.uv_rhs(*[_both(k, d)[1] for k in names], grids[1],
+                             cfg, TAdvScheme[scheme.name])
+    # CPU: the plain version, no launch
+    assert (cuda_uv_rhs.uv_rhs.launches,
+            cuda_uv_rhs.uv_rhs.plain_calls) == (before[0], before[1] + 1)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12,
+                                   atol=1e-12)
 
 
 def test_wrappers_never_fall_back():
