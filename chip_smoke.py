@@ -164,7 +164,7 @@ is nonzero (the whole script takes about 9 minutes on an H100):
      the same case and step in PRECISION_DATA.json (floor 1e-6; zeta,
      temp and KE, and u for Rivers_ana; Filament's u, near zero at the
      start, printed only); (b) production 384x192x60 nt=34, 20 steps with
-     the three kernels, and again with their plain versions put in the
+     the four kernels, and again with their plain versions put in the
      wrappers' place for that run only: each field's drift at step 20
      with the kernels at most 10x the plain run's (floor 1e-6); the plain
      run launches no kernel.
@@ -180,17 +180,17 @@ is nonzero (the whole script takes about 9 minutes on an H100):
      float64) run the same comparison once on their cases; it runs after
      phase 7.
 
-Every phase that drives a path sets the kernels' launch counts to 0 just
-before it and reads them just after, in phase 15 on every rank (phase
-12's profile excepted: it reads the device's kernels; phase 16's plain
-run, held to none), and holds them to what the configuration's gates
-select: the tracer kernel twice a step where
-`cuda_tracer.usable` admits the configuration (not for river sources),
-the solve four times, KPP twice where `cuda_kpp.usable` admits the
-configuration (KPP without a mesh block's pad); `full_width` also holds
-the momentum r.h.s. to two launches and no plain call a step where
-`cuda_uv_rhs.usable` admits the configuration (one of each with the
-momentum budget, whose split keeps the plain version).  The line before the last
+Every phase that drives a path sets the kernels' launch counts
+(`_build.kernel_stats`) to 0 just before it and reads them just after,
+in phase 15 on every rank (phase 12's profile excepted: it reads the
+device's kernels; phase 16's plain run, held to none), and holds them to
+what the configuration's flags select, read as the reference's gates
+read them (`expected_counts`): the tracer kernel twice a step without
+river sources, the batched branch's options or a mesh block's pad, the
+solve four times, KPP twice under LMD_KPP without the pad, the momentum
+r.h.s. twice without the pad (once with the momentum budget, whose split
+takes the plain version, which `full_width` holds to its count too).
+Phase 2 holds every case to one launch.  The line before the last
 is a JSON object {"kernels": [...]} whose launches and times come from
 phase 6; the last line is {"ok": true, "device": {...}}.  Imports the
 port, torch and numpy: nothing of JAX and nothing of the JAX package.
@@ -214,10 +214,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(HERE, "tests", "data", "filament_oracle.txt")
 
 TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
-# the card's published peaks (H100 SXM data sheet): device memory, and
-# arithmetic outside the tensor cores by type
-PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 STATE = ("zeta", "ubar", "vbar", "u", "v", "t", "hz", "rho")
 # how close the ALK and DIC content that cdr_3d's release adds in phase 11
 # must come to flx*dt*steps: ALK takes no part in the BGC engine's
@@ -460,6 +456,7 @@ def phase_kernels(device):
     from roms_tpu_torch.config import AdvScheme
     from roms_tpu_torch.ops import (_harness, cuda_kpp, cuda_solve,
                                     cuda_tracer, cuda_uv_rhs)
+    reset_counts()
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         for name in TRACER_CASES:
@@ -507,36 +504,58 @@ def phase_kernels(device):
                               f"uv_rhs {name} {scheme.name} {tag}")
                 say(f"[2 kernels] uv_rhs {name:8s} {scheme.name:9s} {tag}: "
                     f"max abs err {err:.3e}")
+    # every case launched its kernel: none took the plain version
+    expected = (2 * len(TRACER_CASES), 2 * len(SOLVE_CASES),
+                2 * len(KPP_CASES), 4 * len(UV_CASES))
+    if read_counts() != expected:
+        raise AssertionError(f"2 kernels: launches (tracer, solve, kpp, "
+                             f"uv_rhs) = {read_counts()}, expected "
+                             f"{expected}")
 
 
 # ------------------------------------------------------------------ counts
-def _wrappers():
-    from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer
-    return (cuda_tracer.tracer_stage, cuda_solve.momentum_implicit,
-            cuda_kpp.vmix_update)
-
-
 def reset_counts():
-    for w in _wrappers():
-        w.launches = 0
+    from roms_tpu_torch.ops import _build
+    for stats in _build.kernel_stats.values():
+        stats["launches"] = stats["plain"] = 0
 
 
 def read_counts():
-    """Launches of (tracer, solve, kpp) since the last reset."""
-    return tuple(w.launches for w in _wrappers())
+    """Launches of (tracer, solve, kpp, uv_rhs) since the last reset."""
+    from roms_tpu_torch.ops import _build
+    return tuple(_build.kernel_stats[k]["launches"] for k in _build.KERNELS)
+
+
+def expected_counts(nsteps, cfg):
+    """Launches of (tracer, solve, kpp, uv_rhs) over nsteps, from the
+    configuration's flags as the reference's gates read them
+    (roms_tpu/ops/pallas_tracer.py:usable, pallas_kpp.py:usable), not
+    from the port's gates, which they check: the tracer kernel twice a
+    step without river sources, the batched branch's options and a mesh
+    block's pad; the solve four times; KPP twice under LMD_KPP without
+    the pad; the momentum r.h.s. twice without the pad, once with the
+    momentum budget (its split takes the plain version)."""
+    pad = bool(cfg.pad_e or cfg.pad_n)
+    tracer = not (cfg.river_source or cfg.adv_isoneutral
+                  or cfg.upscale_output or cfg.tracer_diagnostics or pad)
+    return (2 * nsteps * tracer, 4 * nsteps,
+            2 * nsteps * (cfg.lmd_kpp and not pad),
+            0 if pad else (2 - int(cfg.uv_diagnostics)) * nsteps)
+
+
+def uv_rhs_plain_calls(nsteps, cfg):
+    """The momentum r.h.s.'s plain calls over nsteps on the card: the
+    budget's split, or both calls on a mesh block's padded grid."""
+    if cfg.pad_e or cfg.pad_n:
+        return 2 * nsteps
+    return int(cfg.uv_diagnostics) * nsteps
 
 
 def check_counts(counts, nsteps, cfg, what):
-    """Launches the configuration's gates select: the tracer kernel twice
-    a step where `cuda_tracer.usable` admits the configuration (none for
-    river sources), the solve four times, KPP twice where
-    `cuda_kpp.usable` admits it (KPP without a mesh-divisibility pad)."""
-    from roms_tpu_torch.ops import cuda_kpp, cuda_tracer
-    expected = (2 * nsteps if cuda_tracer.usable(cfg) else 0, 4 * nsteps,
-                2 * nsteps if cuda_kpp.usable(cfg) else 0)
+    expected = expected_counts(nsteps, cfg)
     if counts != expected:
-        raise AssertionError(f"{what}: kernel launches (tracer, solve, kpp) "
-                             f"= {counts}, expected {expected}")
+        raise AssertionError(f"{what}: kernel launches (tracer, solve, kpp, "
+                             f"uv_rhs) = {counts}, expected {expected}")
 
 
 def check_finite(st, what):
@@ -708,30 +727,27 @@ def kernel_vs_plain(kernel, plain, dtype, what, reps=20, floor=None):
             float(np.median(d1 + d2)), float(np.median(h1 + h2)))
 
 
-def bound(nbytes, ops, dtype):
-    """(bound ms, 'bytes' or 'operations'): the larger of the compulsory
-    bytes that the wrapper counted for its last launch (each distinct
-    input read once, each output written once) over the card's memory rate
-    and `ops` over its peak arithmetic rate."""
-    t_bytes = 1e3 * nbytes / PEAK_BYTES
-    t_ops = 1e3 * ops / PEAK_OPS[dtype]
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_timings(grid, st, frc, cfg, what, counts):
     """Each kernel of the step against its plain version on the state of a
     full-width run, at the main path's shapes, with the t3dmix inputs the
     corrector reads (`stepper.tracer_mix`); returns the JSON rows of the
     kernels the configuration's gates select.  counts: launches of
-    (tracer, solve, KPP, momentum r.h.s.) in the run."""
-    from roms_tpu_torch.ops import (cuda_kpp, cuda_solve, cuda_tracer,
-                                    cuda_uv_rhs, eos, vmix)
+    (tracer, solve, KPP, momentum r.h.s.) in the run.  Each row's bound is
+    the larger of the call's compulsory bytes (each distinct input read
+    once, each output written once) over the card's memory rate and a
+    lower count of its arithmetic over its peak rate
+    (`bench_h100.peaks.bound_s`)."""
+    from bench_h100 import peaks
+    from roms_tpu_torch.ops import (_build, cuda_kpp, cuda_solve,
+                                    cuda_tracer, cuda_uv_rhs, eos, vmix)
     from roms_tpu_torch.ops.kinematics import hz_u
     from roms_tpu_torch.parallel.halo import shift
     from roms_tpu_torch.stepper import AM3_CRV, tracer_mix
     dtype = st.t.dtype
     nt, nz, jy, ix = st.t.shape
     col = jy * ix
+    elem = st.t.element_size()
+    plane = col * elem
     rows = []
     pmn = grid.pm * grid.pn
     mix = tracer_mix(grid, cfg, st.t)
@@ -745,6 +761,12 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
                st.wi, st.akt, pmn, grid.rmask, grid.umask, grid.vmask, cfg,
                cfg.ts_corr_scheme, cfg.dt, 0.0, 1.0, True, "corr")
     tr_kw = dict(stflx=frc.stflx, mix=mix)
+
+    def tracer_bytes(args, kw):
+        """A stage's inputs, Akt's used rows alone, and its output."""
+        reads = (*args[:8], args[8][:max(cfg.i_t_and_s, 1)], *args[9:13],
+                 kw.get("stflx"), *(kw.get("mix") or {}).values())
+        return _build.compulsory_bytes(reads, ()) + nt * nz * plane
     # the predictor's inputs as the main path builds them (stepper.py,
     # pre_step3d after the first step)
     dtau_p = cfg.dt * (1.0 - AM3_CRV)
@@ -773,32 +795,43 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
                cfg)
     so_kw = dict(bottom_drag_coeff=0.5 * (rd + shift(rd, 0, -1)))
     so_ops = 10 * nz * col
+    so_bytes = _build.compulsory_bytes(
+        (*so_args[:5], so_args[6], so_kw["bottom_drag_coeff"]), ()) \
+        + nz * plane
 
     cases = [("momentum_solve", cuda_solve.momentum_implicit,
               cuda_solve.momentum_implicit_plain, so_args, so_kw, so_ops,
-              "roms_tpu_torch/csrc/momentum_solve.cu",
+              so_bytes, "roms_tpu_torch/csrc/momentum_solve.cu",
               "roms_tpu/ops/pallas_solve.py:66", counts[1])]
     if cuda_uv_rhs.usable(cfg):
         # the corrector's call (UPSTREAM3) and the predictor's (CENTERED4)
         # on the run's final state; lower count of arithmetic per (level,
         # column): both components' fluxes, Coriolis and spline sweeps
         uv_ops = 150 * nz * col
+        uv_bytes = _build.compulsory_bytes(
+            (st.u, st.v, st.flx_u, st.flx_v, st.hz, st.we, grid.fomn)
+            + ((grid.dndx, grid.dmde) if cfg.curvgrid and cfg.uv_adv else ())
+            + ((grid.umask, grid.vmask) if cfg.masking and cfg.uv_adv
+               else ()), ()) + 2 * nz * plane
         for tag, scheme in (("", cfg.uv_corr_scheme),
                             ("_pred", cfg.uv_pred_scheme)):
             occ["uv_rhs" + tag] = cuda_uv_rhs.occupancy(dtype, nz, scheme)
             cases.append((
                 "uv_rhs" + tag, cuda_uv_rhs.uv_rhs, cuda_uv_rhs.uv_rhs_plain,
                 (st.u, st.v, st.flx_u, st.flx_v, st.hz, st.we, grid, cfg,
-                 scheme), {}, uv_ops, "roms_tpu_torch/csrc/uv_rhs.cu",
+                 scheme), {}, uv_ops, uv_bytes,
+                "roms_tpu_torch/csrc/uv_rhs.cu",
                 "none (roms_tpu/stepper.py:_uv_rhs, XLA)", counts[3]))
     if cuda_tracer.usable(cfg):
         # both tracer rows are the one kernel and its one launch count
         cases[:0] = [("tracer_stage", cuda_tracer.tracer_stage,
                       cuda_tracer.tracer_stage_plain, tr_args, tr_kw, tr_ops,
+                      tracer_bytes(tr_args, tr_kw),
                       "roms_tpu_torch/csrc/tracer_stage.cu",
                       "roms_tpu/ops/pallas_tracer.py:321", counts[0]),
                      ("tracer_stage_pred", cuda_tracer.tracer_stage,
                       cuda_tracer.tracer_stage_plain, pr_args, {}, tr_ops,
+                      tracer_bytes(pr_args, {}),
                       "roms_tpu_torch/csrc/tracer_stage.cu",
                       "roms_tpu/ops/pallas_tracer.py:321", counts[0])]
     if cfg.lmd_kpp:
@@ -809,11 +842,15 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
         # lower count per (level, column): Ri, smoother, wscale, profiles
         kp_ops = 100 * nz * col
         occ["kpp_vmix"] = cuda_kpp.occupancy(dtype, nz)
+        # the kernel reads the surface level of T and S alone
+        kp_bytes = cuda_kpp.launch_bytes(nz, jy, ix, elem, cfg.salinity,
+                                         cfg.masking)
         cases.append(("kpp_vmix", cuda_kpp.vmix_update,
                       cuda_kpp.vmix_update_plain, kp_args, {}, kp_ops,
-                      "roms_tpu_torch/csrc/kpp_vmix.cu",
+                      kp_bytes, "roms_tpu_torch/csrc/kpp_vmix.cu",
                       "roms_tpu/ops/pallas_kpp.py:445", counts[2]))
-    for name, kern, plain, args, kw, ops, src, repl, launches in cases:
+    for name, kern, plain, args, kw, ops, nbytes, src, repl, launches in \
+            cases:
         def k(kern=kern, args=args, kw=kw):
             return kern(*args, **kw)
 
@@ -832,11 +869,11 @@ def kernel_timings(grid, st, frc, cfg, what, counts):
                 f"{n} {v:.3e}" for n, v in floor.items()))
         err, k_ms, p_ms, dev_ms, host_ms = kernel_vs_plain(
             k, p, dtype, f"{what} {name}", floor=floor)
-        b_ms, b_by = bound(kern.last_bytes, ops, dtype)
-        note += (f"; {kern.last_bytes / 1e9:.4f} GB compulsory at "
-                 f"{kern.last_bytes / k_ms / 1e9:.4f} TB/s a call, "
-                 f"{kern.last_bytes / dev_ms / 1e9:.4f} TB/s on the "
-                 f"device; ")
+        b_s, b_by = peaks.bound_s(ops, nbytes, elem)
+        b_ms = 1e3 * b_s
+        note += (f"; {nbytes / 1e9:.4f} GB compulsory at "
+                 f"{nbytes / k_ms / 1e9:.4f} TB/s a call, "
+                 f"{nbytes / dev_ms / 1e9:.4f} TB/s on the device; ")
         if name.startswith("tracer_stage"):
             note += occupancy_text(
                 tr_occ["pred" if name.endswith("pred") else "corr"])
@@ -912,26 +949,22 @@ def full_width(start, warm, nsteps, what, timings, hook=None):
             spent.append(time.perf_counter() - t0)
             return last[0]
         exp.forcing_fn = forcing_fn
-    from roms_tpu_torch.ops import cuda_uv_rhs
+    from roms_tpu_torch.ops import _build
     try:
         reset_counts()
-        cuda_uv_rhs.uv_rhs.launches = cuda_uv_rhs.uv_rhs.plain_calls = 0
         st, _ = exp.run(nsteps=warm + nsteps, collect_diag=False,
                         step_hook=mark)
         torch.cuda.synchronize()
         counts = read_counts()
+        uv_plain = _build.kernel_stats["uv_rhs"]["plain"]
     finally:
         if exp.fileset is not None:
             exp.fileset.close()
     check_counts(counts, warm + nsteps, cfg, what)
-    # the momentum r.h.s.: two calls a step, the corrector's on the plain
-    # version with the momentum budget's split, both where the gate refuses
-    uv = (cuda_uv_rhs.uv_rhs.launches, cuda_uv_rhs.uv_rhs.plain_calls)
-    split = int(cfg.uv_diagnostics) if cuda_uv_rhs.usable(cfg) else 2
-    expected = ((2 - split) * (warm + nsteps), split * (warm + nsteps))
-    if uv != expected:
-        raise AssertionError(f"{what}: uv_rhs launches, plain calls = {uv}, "
-                             f"expected {expected}")
+    if uv_plain != uv_rhs_plain_calls(warm + nsteps, cfg):
+        raise AssertionError(f"{what}: uv_rhs plain calls {uv_plain}, "
+                             f"expected "
+                             f"{uv_rhs_plain_calls(warm + nsteps, cfg)}")
     check_finite(st, what)
     wall = clock[warm + nsteps] - clock[warm]
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -945,12 +978,12 @@ def full_width(start, warm, nsteps, what, timings, hook=None):
         f"{1e3 * wall / nsteps:.3f} ms/step, "
         f"{cfg.nx * cfg.ny * cfg.nz * nsteps / wall:.6e} gridpoint-steps/s "
         f"over {nsteps} steps after {warm} warm-up; {frc}launches tracer "
-        f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}, uv_rhs {uv[0]} "
-        f"(plain calls {uv[1]}); state finite; "
+        f"{counts[0]}, solve {counts[1]}, kpp {counts[2]}, uv_rhs "
+        f"{counts[3]} (plain calls {uv_plain}); state finite; "
         f"peak device memory {peak:.3f} GiB")
     # the kernels are timed on the forcing of the last step
     rows = kernel_timings(exp.grid, st, last[0], cfg, what,
-                          counts + (uv[0],)) if timings else None
+                          counts) if timings else None
     return rows, st, exp
 
 
@@ -1944,10 +1977,11 @@ def phase_nested(device, workdir):
     counts = read_counts()
     # the parent's 8 and 2 steps take the tracer kernel, the child's 8
     # (upscale capture) the batched branch; the basin has no KPP
-    expected = (2 * (nb.NSTEPS + 2), 4 * (2 * nb.NSTEPS + 2), 0)
+    expected = (2 * (nb.NSTEPS + 2), 4 * (2 * nb.NSTEPS + 2), 0,
+                2 * (2 * nb.NSTEPS + 2))
     if counts != expected:
         raise AssertionError(f"14b nested: kernel launches (tracer, solve, "
-                             f"kpp) = {counts}, expected {expected}")
+                             f"kpp, uv_rhs) = {counts}, expected {expected}")
     nb.check_flow(out)
     ref = np.loadtxt(os.path.join(DATA, "nested_flow_jax.txt"))
     got = np.concatenate([[out["dc"], out["net_flux"], out["inj"],
@@ -2627,9 +2661,10 @@ def phase_mesh(device, workdir, smi):
     _build.build()          # once, before any rank needs the library
     t0 = time.perf_counter()
     (a,) = launch(rank_15a, 1, "nccl", "cuda", timeout=300.0)
-    expected = (2 * 3, 4 * 3, 2 * 3)
-    for tag, _ in MESH_15A:
+    for tag, flags in MESH_15A:
         r = a[tag]
+        expected = expected_counts(
+            3, bench_production.config(**MESH_CASE).replace(**flags))
         if r["differ"] or not r["rows_equal"] or r["counts"] != expected \
                 or a["nccl"] != 1.0 or a["backend"] != "nccl":
             raise AssertionError(
@@ -2834,7 +2869,8 @@ def phase_precision(device, smi):
     against the JAX package's record, (b) production's kernels against
     their plain versions."""
     from roms_tpu_torch import precision_study as ps
-    from roms_tpu_torch.ops import cuda_kpp, cuda_solve, cuda_tracer
+    from roms_tpu_torch.ops import (cuda_kpp, cuda_solve, cuda_tracer,
+                                    cuda_uv_rhs)
     t0 = time.perf_counter()
     with open(os.path.join(HERE, "PRECISION_DATA.json")) as f:
         record = json.load(f)
@@ -2855,14 +2891,15 @@ def phase_precision(device, smi):
 
     cfg = ps.CASES["production"][0]()
     rows, counts = precision_rows("production", PREC_PROD_STEPS, device)
-    # the control: the stepper reads the three wrappers from their
+    # the control: the stepper reads the four wrappers from their
     # modules at each call, so the same study runs their plain versions
     reset_counts()
     saved = (cuda_tracer.tracer_stage, cuda_solve.momentum_implicit,
-             cuda_kpp.vmix_update)
+             cuda_kpp.vmix_update, cuda_uv_rhs.uv_rhs)
     cuda_tracer.tracer_stage = cuda_tracer.tracer_stage_plain
     cuda_solve.momentum_implicit = cuda_solve.momentum_implicit_plain
     cuda_kpp.vmix_update = cuda_kpp.vmix_update_plain
+    cuda_uv_rhs.uv_rhs = cuda_uv_rhs.uv_rhs_plain
     try:
         plain = ps.study("production", ps.maker("production", device),
                          PREC_PROD_STEPS, device,
@@ -2870,9 +2907,9 @@ def phase_precision(device, smi):
         torch.cuda.synchronize()
     finally:
         (cuda_tracer.tracer_stage, cuda_solve.momentum_implicit,
-         cuda_kpp.vmix_update) = saved
+         cuda_kpp.vmix_update, cuda_uv_rhs.uv_rhs) = saved
     control = read_counts()
-    if control != (0, 0, 0):
+    if control != (0, 0, 0, 0):
         raise AssertionError(f"16b production with the plain versions: "
                              f"kernel launches {control}, expected 0")
     got, ref = rows[-1], plain[-1]

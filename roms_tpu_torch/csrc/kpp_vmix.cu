@@ -67,11 +67,10 @@
 // wrapper, ops/cuda_kpp.py, caps nz at its NZ_MAX) and allows each that
 // much once per device and size.
 //
-// Entry points: roms_kpp_vmix_f32 / _f64 launch both kernels on the given
-// stream and return cudaGetLastError(); roms_kpp_vmix_occupancy reports
-// each kernel's threads and shared memory per block, resident blocks per
-// SM, registers and stack.  Plain C, bound by ctypes from
-// roms_tpu_torch/ops/cuda_kpp.py.
+// Entry points (the form of kernel_util.cuh): roms_kpp_vmix_f32 / _f64
+// launch both kernels on the given stream and return cudaGetLastError();
+// roms_kpp_vmix_occupancy reports both launch configurations.  Plain C,
+// bound by ctypes through roms_tpu_torch/ops/_build.py.
 
 #include <cuda_runtime.h>
 
@@ -822,8 +821,20 @@ bool prepared(int nz) {
       && allow_smem((const void*)k_profile<T>, smem_b<T>(nz), allowed_b);
 }
 
+// p: u, v, bvf, z_r, z_w, hz, swrf, t (nt, nz, jy, ix), stflx (nt, jy, ix),
+//    srflx, sustr, svstr, f, rmask, umask, vmask, hbls, hbbl, akv,
+//    akt (n_akt, nz+1, jy, ix), ghat, hbls_out, hbbl_out, HB (the
+//    (2, jy, ix) plane between the launches); masks NULL without masking.
+// n: nz, jy, ix, masking, salinity, nonlin_eos, ew_periodic, ns_periodic,
+//    own_w, own_e, own_s, own_n, first_step, itemp, isalt.
+// d: g, rho0, von_karman, zob, akv_bak, akt_bak, |tcoef|, |scoef|, cg, vtc.
+// occupancy n: f64, nz; out: launch A's five ints, then launch B's.
+constexpr Lengths LENGTHS = {24, 15, 10, 2, 10};
+
 template <typename T>
 int launch(const void* const* p, const int* n, const double* d, void* stream) {
+  n = launch_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
   Args<T> a;
   const int nz = n[0], jy = n[1], ix = n[2];
   const long n2 = (long)jy * ix;
@@ -894,34 +905,14 @@ int launch(const void* const* p, const int* n, const double* d, void* stream) {
 template <typename T>
 int occupancy(int nz, int* out) {
   if (!prepared<T>(nz)) return (int)cudaErrorInvalidValue;
-  const void* ks[2] = {(const void*)k_column<T>, (const void*)k_profile<T>};
-  const int threads[2] = {NTA, NTB};
-  const int shared[2] = {smem_a<T>(nz), smem_b<T>(nz)};
-  for (int q = 0; q < 2; ++q) {
-    int* o = out + 5 * q;
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, ks[q]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &o[2], ks[q], threads[q], shared[q]);
-    if (err != cudaSuccess) return (int)err;
-    o[0] = threads[q];
-    o[1] = shared[q];
-    o[3] = attr.numRegs;
-    o[4] = (int)attr.localSizeBytes;
-  }
-  return 0;
+  const int err = occupancy_of((const void*)k_column<T>, NTA, smem_a<T>(nz),
+                               out);
+  return err ? err : occupancy_of((const void*)k_profile<T>, NTB,
+                                  smem_b<T>(nz), out + 5);
 }
 
 }  // namespace
 
-// p: u, v, bvf, z_r, z_w, hz, swrf, t (nt, nz, jy, ix), stflx (nt, jy, ix),
-//    srflx, sustr, svstr, f, rmask, umask, vmask, hbls, hbbl, akv,
-//    akt (n_akt, nz+1, jy, ix), ghat, hbls_out, hbbl_out, HB (the
-//    (2, jy, ix) plane between the launches); masks NULL without masking.
-// n: nz, jy, ix, masking, salinity, nonlin_eos, ew_periodic, ns_periodic,
-//    own_w, own_e, own_s, own_n, first_step, itemp, isalt.
-// d: g, rho0, von_karman, zob, akv_bak, akt_bak, |tcoef|, |scoef|, cg, vtc.
 extern "C" int roms_kpp_vmix_f32(const void* const* p, const int* n,
                                  const double* d, void* stream) {
   return launch<float>(p, n, d, stream);
@@ -932,10 +923,10 @@ extern "C" int roms_kpp_vmix_f64(const void* const* p, const int* n,
   return launch<double>(p, n, d, stream);
 }
 
-// Both kernels' launch configurations for (f64, nz) on the current device:
-// threads and shared-memory bytes per block, resident blocks per SM,
-// registers and stack bytes per thread, of launch A into out[0..4] and of
-// launch B into out[5..9].
-extern "C" int roms_kpp_vmix_occupancy(int f64, int nz, int* out) {
-  return f64 ? occupancy<double>(nz, out) : occupancy<float>(nz, out);
+// Both kernels' launch configurations for (f64, nz) on the current
+// device, of launch A into out[0..4] and of launch B into out[5..9].
+extern "C" int roms_kpp_vmix_occupancy(const int* n, int* out) {
+  n = occupancy_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
+  return n[0] ? occupancy<double>(n[1], out) : occupancy<float>(n[1], out);
 }

@@ -37,10 +37,10 @@
 // ops/cuda_solve.py, caps nz at its NZ_MAX) and allows the kernel that
 // much once per device and size.
 //
-// Entry points: roms_momentum_solve_f32 / _f64 launch on the given stream
-// and return cudaGetLastError(); roms_momentum_solve_occupancy reports
-// threads and shared memory per block, resident blocks per SM, registers
-// and stack.  Plain C, bound by ctypes from roms_tpu_torch/ops/cuda_solve.py.
+// Entry points (the form of kernel_util.cuh): roms_momentum_solve_f32 /
+// _f64 launch on the given stream and return cudaGetLastError();
+// roms_momentum_solve_occupancy reports the launch configuration.  Plain
+// C, bound by ctypes through roms_tpu_torch/ops/_build.py.
 
 #include <cuda_runtime.h>
 
@@ -163,60 +163,49 @@ KernelFn<T> prepared(int nz) {
       ? k : nullptr;
 }
 
+// p: rhs, hz_face, akv_face, wi_face, dc0, sstr, bottom drag (or NULL),
+//    out.  n: nz, jy, ix.  d: dtau.  occupancy n: f64, nz.
+constexpr Lengths LENGTHS = {8, 3, 1, 2, 5};
+
 template <typename T>
-int launch(const void* rhs, const void* hzf, const void* akvf,
-           const void* wif, const void* dc0, const void* sstr,
-           const void* rd, void* out, int nz, int jy, int ix, double dtau,
+int launch(const void* const* p, const int* n, const double* d,
            void* stream) {
+  n = launch_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
+  const int nz = n[0];
   KernelFn<T> k = prepared<T>(nz);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  const long n2 = (long)jy * ix;
+  const long n2 = (long)n[1] * n[2];
   const dim3 grid((unsigned)((n2 + SI - 1) / SI));
   k<<<grid, SI, smem_elems(nz) * sizeof(T), (cudaStream_t)stream>>>(
-      (const T*)rhs, (const T*)hzf, (const T*)akvf, (const T*)wif,
-      (const T*)dc0, (const T*)sstr, (const T*)rd, (T*)out, nz, n2, (T)dtau);
+      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
+      (const T*)p[4], (const T*)p[5], (const T*)p[6], (T*)p[7], nz, n2,
+      (T)d[0]);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int occupancy(int nz, int* out) {
-  KernelFn<T> k = prepared<T>(nz);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)k);
-  out[0] = SI;
-  out[1] = smem_elems(nz) * (int)sizeof(T);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], k, SI,
-                                                        out[1]);
-  out[3] = attr.numRegs;
-  out[4] = (int)attr.localSizeBytes;
-  return (int)err;
+  return occupancy_of((const void*)prepared<T>(nz), SI,
+                      smem_elems(nz) * (int)sizeof(T), out);
 }
 
 }  // namespace
 
-// Pointers: rhs, hz_face, akv_face, wi_face, dc0, sstr, bottom drag (or
-// NULL), out.  Ints: nz, jy, ix.  Double: dtau.
-extern "C" int roms_momentum_solve_f32(
-    const void* rhs, const void* hzf, const void* akvf, const void* wif,
-    const void* dc0, const void* sstr, const void* rd, void* out, int nz,
-    int jy, int ix, double dtau, void* stream) {
-  return launch<float>(rhs, hzf, akvf, wif, dc0, sstr, rd, out, nz, jy, ix,
-                       dtau, stream);
+extern "C" int roms_momentum_solve_f32(const void* const* p, const int* n,
+                                       const double* d, void* stream) {
+  return launch<float>(p, n, d, stream);
 }
 
-extern "C" int roms_momentum_solve_f64(
-    const void* rhs, const void* hzf, const void* akvf, const void* wif,
-    const void* dc0, const void* sstr, const void* rd, void* out, int nz,
-    int jy, int ix, double dtau, void* stream) {
-  return launch<double>(rhs, hzf, akvf, wif, dc0, sstr, rd, out, nz, jy, ix,
-                        dtau, stream);
+extern "C" int roms_momentum_solve_f64(const void* const* p, const int* n,
+                                       const double* d, void* stream) {
+  return launch<double>(p, n, d, stream);
 }
 
 // The kernel's launch configuration for (f64, nz) on the current device,
-// into out[0..4]: threads and shared-memory bytes per block, resident
-// blocks per SM, registers and stack bytes per thread.
-extern "C" int roms_momentum_solve_occupancy(int f64, int nz, int* out) {
-  return f64 ? occupancy<double>(nz, out) : occupancy<float>(nz, out);
+// into out[0..4].
+extern "C" int roms_momentum_solve_occupancy(const int* n, int* out) {
+  n = occupancy_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
+  return n[0] ? occupancy<double>(n[1], out) : occupancy<float>(n[1], out);
 }

@@ -75,12 +75,14 @@
 //    of one tile for all tracers run together and share the tracer-free
 //    fields (flx_u, flx_v, Hz, We, Wi, akt) through L2.
 //
-// Entry points: roms_tracer_stage_f32 / _f64 launch on the given stream
-// and return cudaGetLastError(); roms_tracer_stage_occupancy reports a
-// launch configuration's resident blocks per SM, registers and stack.
-// Plain C, bound by ctypes from roms_tpu_torch/ops/cuda_tracer.py.
+// Entry points (the form of kernel_util.cuh): roms_tracer_stage_f32 /
+// _f64 launch on the given stream and return cudaGetLastError();
+// roms_tracer_stage_occupancy reports a launch configuration.  Plain C,
+// bound by ctypes through roms_tpu_torch/ops/_build.py.
 
 #include <cuda_runtime.h>
+
+#include "kernel_util.cuh"
 
 namespace {
 
@@ -173,23 +175,6 @@ __device__ __forceinline__ double rcp(double x) { return __drcp_rn(x); }
 // the largest power of two <= n, at most 8
 __host__ __device__ constexpr int pow2_depth(int n) {
   return n >= 8 ? 8 : n >= 4 ? 4 : n >= 2 ? 2 : 1;
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-               :: "r"(d), "l"(src), "n"(sizeof(T)) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // advective face flux from the two adjacent tracer values (t_c, t_m),
@@ -706,9 +691,21 @@ KernelFn<T> prepared(int scheme, int mix, int tj, int nz, int smem) {
   return k;
 }
 
+// p: tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt, pmn, rmask, umask,
+//    vmask, stflx (or NULL), diff2 (or NULL: no t3dmix), pmon_u, pnom_v,
+//    out.
+// n: nt, nz, jy, ix, imix, scheme, corr, masking, ew_periodic,
+//    ns_periodic, own_w, own_e, own_s, own_n, apply_mask, tj (tile rows),
+//    smem (bytes, as ops/cuda_tracer.py:smem_bytes gives them).
+// d: dtau, c_tk, c_sec.
+// occupancy n: f64, scheme, mix, tj, nz, smem.
+constexpr Lengths LENGTHS = {18, 17, 3, 6, 5};
+
 template <typename T>
 int launch(const void* const* p, const int* n, const double* d,
            void* stream) {
+  n = launch_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
   Args<T> a;
   a.tk = (const T*)p[0];
   a.t_sec = (const T*)p[1];
@@ -758,51 +755,24 @@ int launch(const void* const* p, const int* n, const double* d,
 
 }  // namespace
 
-// Pointers: tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt, pmn, rmask,
-// umask, vmask, stflx (or NULL), diff2 (or NULL: no t3dmix), pmon_u,
-// pnom_v, out.  Ints: nt, nz, jy, ix, imix, scheme, corr, masking,
-// ew_periodic, ns_periodic, own_w, own_e, own_s, own_n, apply_mask, tj
-// (tile rows), smem (bytes, as ops/cuda_tracer.py:smem_bytes gives them).
-// Doubles: dtau, c_tk, c_sec.
-#define ROMS_TRACER_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(                                                          \
-      const void* tk, const void* t_sec, const void* flx_u, const void* flx_v, \
-      const void* hz_a, const void* hz_b, const void* we, const void* wi,      \
-      const void* akt, const void* pmn, const void* rmask, const void* umask,  \
-      const void* vmask, const void* stflx, const void* diff2,                 \
-      const void* pmon_u, const void* pnom_v, void* out,                       \
-      int nt, int nz, int jy, int ix, int imix, int scheme, int corr,          \
-      int masking, int ew_periodic, int ns_periodic, int own_w, int own_e,     \
-      int own_s, int own_n, int apply_mask, int tj, int smem, double dtau,     \
-      double c_tk, double c_sec, void* stream) {                               \
-    const void* p[18] = {tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,    \
-                         pmn, rmask, umask, vmask, stflx, diff2, pmon_u,       \
-                         pnom_v, out};                                         \
-    const int n[17] = {nt, nz, jy, ix, imix, scheme, corr, masking,           \
-                       ew_periodic, ns_periodic, own_w, own_e, own_s, own_n,   \
-                       apply_mask, tj, smem};                                  \
-    const double d[3] = {dtau, c_tk, c_sec};                                  \
-    return launch<T>(p, n, d, stream);                                         \
-  }
+extern "C" int roms_tracer_stage_f32(const void* const* p, const int* n,
+                                     const double* d, void* stream) {
+  return launch<float>(p, n, d, stream);
+}
 
-ROMS_TRACER_ENTRY(roms_tracer_stage_f32, float)
-ROMS_TRACER_ENTRY(roms_tracer_stage_f64, double)
+extern "C" int roms_tracer_stage_f64(const void* const* p, const int* n,
+                                     const double* d, void* stream) {
+  return launch<double>(p, n, d, stream);
+}
 
-// Resident blocks per SM, registers per thread and stack bytes per thread
-// of the kernel for (f64, scheme, mix) at tile rows tj and `smem` bytes of
-// shared memory, into out[0..2].
-extern "C" int roms_tracer_stage_occupancy(int f64, int scheme, int mix,
-                                           int tj, int nz, int smem,
-                                           int* out) {
+// The launch configuration of the kernel for (f64, scheme, mix) at tile
+// rows tj, nz levels and `smem` bytes of shared memory, into out[0..4].
+extern "C" int roms_tracer_stage_occupancy(const int* n, int* out) {
+  n = occupancy_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
+  const int f64 = n[0], scheme = n[1], mix = n[2], tj = n[3], nz = n[4],
+            smem = n[5];
   const void* k = f64 ? (const void*)prepared<double>(scheme, mix, tj, nz, smem)
                       : (const void*)prepared<float>(scheme, mix, tj, nz, smem);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, k);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k,
-                                                      2 * TI * tj, smem);
-  out[1] = attr.numRegs;
-  out[2] = (int)attr.localSizeBytes;
-  return (int)err;
+  return occupancy_of(k, 2 * TI * tj, smem, out);
 }

@@ -49,11 +49,10 @@
 //    difference one cell along its axis; the per-thread shifts are fixed
 //    before the sweeps.
 //
-// Entry points: roms_uv_rhs_f32 / _f64 launch on the given stream and
-// return cudaGetLastError(); roms_uv_rhs_occupancy reports a launch
-// configuration's threads, shared memory, resident blocks per SM,
-// registers and stack.  Plain C, bound by ctypes from
-// roms_tpu_torch/ops/cuda_uv_rhs.py.
+// Entry points (the form of kernel_util.cuh): roms_uv_rhs_f32 / _f64
+// launch on the given stream and return cudaGetLastError();
+// roms_uv_rhs_occupancy reports a launch configuration.  Plain C, bound by
+// ctypes through roms_tpu_torch/ops/_build.py.
 
 #include <cuda_runtime.h>
 
@@ -378,8 +377,19 @@ KernelFn<T> prepared(int upstream, int tj, int nz, int smem) {
       ? k : nullptr;
 }
 
+// p: u, v, flx_u, flx_v, hz, we, fomn, dndx and dmde (or NULL without
+//    curv), umask, vmask, ru, rv.
+// n: nz, jy, ix, upstream, cor, curv, adv, masking, ew_periodic,
+//    ns_periodic, own_w, own_e, own_s, own_n, tj (tile rows), smem (bytes,
+//    as ops/cuda_uv_rhs.py:smem_bytes gives them).  d: none.
+// occupancy n: f64, upstream, tj, nz, smem.
+constexpr Lengths LENGTHS = {13, 16, 0, 5, 5};
+
 template <typename T>
-int launch(const void* const* p, const int* n, void* stream) {
+int launch(const void* const* p, const int* n, const double*,
+           void* stream) {
+  n = launch_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
   Args<T> a;
   a.u = (const T*)p[0];
   a.v = (const T*)p[1];
@@ -422,52 +432,27 @@ int launch(const void* const* p, const int* n, void* stream) {
 
 template <typename T>
 int occupancy(int upstream, int tj, int nz, int smem, int* out) {
-  KernelFn<T> k = prepared<T>(upstream, tj, nz, smem);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)k);
-  out[0] = 2 * TI * tj;
-  out[1] = smem;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], k, out[0],
-                                                        smem);
-  out[3] = attr.numRegs;
-  out[4] = (int)attr.localSizeBytes;
-  return (int)err;
+  return occupancy_of((const void*)prepared<T>(upstream, tj, nz, smem),
+                      2 * TI * tj, smem, out);
 }
 
 }  // namespace
 
-// Pointers: u, v, flx_u, flx_v, hz, we, fomn, dndx and dmde (or NULL
-// without curv), umask, vmask, ru, rv.  Ints: nz, jy, ix, upstream, cor,
-// curv, adv, masking, ew_periodic, ns_periodic, own_w, own_e, own_s,
-// own_n, tj (tile rows), smem (bytes, as ops/cuda_uv_rhs.py:smem_bytes
-// gives them).
-#define ROMS_UV_RHS_ENTRY(NAME, T)                                             \
-  extern "C" int NAME(                                                         \
-      const void* u, const void* v, const void* flx_u, const void* flx_v,     \
-      const void* hz, const void* we, const void* fomn, const void* dndx,     \
-      const void* dmde, const void* umask, const void* vmask, void* ru,       \
-      void* rv, int nz, int jy, int ix, int upstream, int cor, int curv,      \
-      int adv, int masking, int ew_periodic, int ns_periodic, int own_w,      \
-      int own_e, int own_s, int own_n, int tj, int smem, void* stream) {      \
-    const void* p[13] = {u, v, flx_u, flx_v, hz, we, fomn, dndx, dmde,        \
-                         umask, vmask, ru, rv};                               \
-    const int n[16] = {nz, jy, ix, upstream, cor, curv, adv, masking,         \
-                       ew_periodic, ns_periodic, own_w, own_e, own_s, own_n,  \
-                       tj, smem};                                             \
-    return launch<T>(p, n, stream);                                           \
-  }
+extern "C" int roms_uv_rhs_f32(const void* const* p, const int* n,
+                               const double* d, void* stream) {
+  return launch<float>(p, n, d, stream);
+}
 
-ROMS_UV_RHS_ENTRY(roms_uv_rhs_f32, float)
-ROMS_UV_RHS_ENTRY(roms_uv_rhs_f64, double)
+extern "C" int roms_uv_rhs_f64(const void* const* p, const int* n,
+                               const double* d, void* stream) {
+  return launch<double>(p, n, d, stream);
+}
 
 // The kernel's launch configuration for (f64, upstream) at tile rows tj,
-// nz levels and `smem` bytes on the current device, into out[0..4]:
-// threads and shared-memory bytes per block, resident blocks per SM,
-// registers and stack bytes per thread.
-extern "C" int roms_uv_rhs_occupancy(int f64, int upstream, int tj, int nz,
-                                     int smem, int* out) {
-  return f64 ? occupancy<double>(upstream, tj, nz, smem, out)
-             : occupancy<float>(upstream, tj, nz, smem, out);
+// nz levels and `smem` bytes on the current device, into out[0..4].
+extern "C" int roms_uv_rhs_occupancy(const int* n, int* out) {
+  n = occupancy_ints(LENGTHS, n);
+  if (n == nullptr) return (int)cudaErrorInvalidValue;
+  return n[0] ? occupancy<double>(n[1], n[2], n[3], n[4], out)
+              : occupancy<float>(n[1], n[2], n[3], n[4], out);
 }

@@ -6,11 +6,18 @@ objects into one shared library with a plain C interface, at first use,
 into `build/` at the repository root.  The library's name carries a hash
 of the sources, the headers they include and the flags, so a stale
 library is never loaded.  It is
-bound with `ctypes`: every pointer and the CUDA stream go in as
-`c_void_p` (the KPP entry points take arrays of pointers, ints and
-doubles), and each entry point returns `cudaGetLastError()`, which
-`check` turns into an exception.  `-Xptxas -v` reports each kernel's
-registers and spills; `build` returns that log.
+bound with `ctypes`, every entry point in one form (csrc/kernel_util.cuh):
+a launch takes arrays of pointers, ints and doubles and the CUDA stream,
+an occupancy query an array of ints and one for its output, each array
+as a `c_void_p` to its buffer, the ints headed by the arrays' lengths,
+which the entry point checks.  Each returns a cudaError_t, which `check`
+turns into an exception.  `-Xptxas -v` reports each kernel's registers
+and spills; `build` returns that log.
+
+`library` binds every entry point once, into `ENTRY`.  `dispatch` is
+every kernel wrapper's one path decision (device, the wrapper's gate,
+plain version or launch), and the only place that counts, in
+`kernel_stats`; `launch` and `occupancy` call the entry points.
 
 Nothing here runs at import time: the CPU tests import every module on a
 host with no `nvcc`.
@@ -18,6 +25,7 @@ host with no `nvcc`.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import hashlib
@@ -38,27 +46,29 @@ HEADERS = ("kernel_util.cuh",)  # included by the sources: hashed with them
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_PTR, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# argtypes of the C entry points (see csrc/): pointers, ints, doubles, stream
-_TRACER_ARGS = [_PTR] * 18 + [_INT] * 17 + [_DBL] * 3 + [_PTR]
-_SOLVE_ARGS = [_PTR] * 8 + [_INT] * 3 + [_DBL] + [_PTR]
-_KPP_ARGS = [ctypes.POINTER(_PTR), ctypes.POINTER(_INT),
-             ctypes.POINTER(_DBL), _PTR]
-_UV_RHS_ARGS = [_PTR] * 13 + [_INT] * 16 + [_PTR]
-ENTRY_POINTS = {
-    "roms_tracer_stage_f32": _TRACER_ARGS,
-    "roms_tracer_stage_f64": _TRACER_ARGS,
-    "roms_tracer_stage_occupancy": [_INT] * 6 + [ctypes.POINTER(_INT)],
-    "roms_momentum_solve_f32": _SOLVE_ARGS,
-    "roms_momentum_solve_f64": _SOLVE_ARGS,
-    "roms_momentum_solve_occupancy": [_INT] * 2 + [ctypes.POINTER(_INT)],
-    "roms_kpp_vmix_f32": _KPP_ARGS,
-    "roms_kpp_vmix_f64": _KPP_ARGS,
-    "roms_kpp_vmix_occupancy": [_INT] * 2 + [ctypes.POINTER(_INT)],
-    "roms_uv_rhs_f32": _UV_RHS_ARGS,
-    "roms_uv_rhs_f64": _UV_RHS_ARGS,
-    "roms_uv_rhs_occupancy": [_INT] * 5 + [ctypes.POINTER(_INT)],
-}
+KERNELS = ("tracer_stage", "momentum_solve", "kpp_vmix", "uv_rhs")
+# argtypes of the C entry points: a launch's p, n, d and stream, an
+# occupancy query's n and out
+_LAUNCH_ARGS = [ctypes.c_void_p] * 4
+_OCCUPANCY_ARGS = [ctypes.c_void_p] * 2
+ENTRY_POINTS = {f"roms_{k}_{kind}": (_OCCUPANCY_ARGS if kind == "occupancy"
+                                     else _LAUNCH_ARGS)
+                for k in KERNELS for kind in ("f32", "f64", "occupancy")}
+# sm_90's shared memory: the most one block may have, an SM's, and what
+# each resident block reserves of it
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472            # 228 KB
+SMEM_RESERVED = 1_024
+NZ_MIN = 2                   # the shallowest column any kernel takes
+
+# launches and plain-version calls of each kernel's wrapper, counted by
+# `dispatch` alone
+kernel_stats = {k: {"launches": 0, "plain": 0} for k in KERNELS}
+# the bound entry points, filled by `library` (`bind`): a launch's by
+# (kernel, dtype), an occupancy query's by (kernel, "occupancy")
+ENTRY = {}
+_KIND = {"f32": torch.float32, "f64": torch.float64,
+         "occupancy": "occupancy"}
 
 
 def _nvcc() -> str:
@@ -111,17 +121,76 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
+    bind(lib)
+    return lib
+
+
+def bind(lib):
+    """Give each entry point of `lib` its argtypes and put it in ENTRY."""
     for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        kernel, kind = name[len("roms_"):].rsplit("_", 1)
+        ENTRY[kernel, _KIND[kind]] = fn
 
 
 def check(err: int, what: str):
     """Raise on a nonzero cudaError_t from a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def dispatch(kernel: str, admit: bool, plain, launch_fn, *args, at=0,
+             **kw):
+    """Run a kernel wrapper's call, `args` and `kw` being its arguments
+    and args[at] the tensor whose device decides: a CPU tensor takes
+    `plain`; a device other than CUDA raises; on CUDA the call takes
+    `launch_fn` where the wrapper's gate `admit` holds, else `plain`.
+    Counts the path in `kernel_stats`."""
+    dev = args[at].device.type
+    if dev == "cuda" and admit:
+        out = launch_fn(*args, **kw)
+        kernel_stats[kernel]["launches"] += 1
+        return out
+    if dev != "cpu" and dev != "cuda":
+        raise ValueError(f"{kernel}: no kernel for {args[at].device}")
+    kernel_stats[kernel]["plain"] += 1
+    return plain(*args, **kw)
+
+
+def check_nz(kernel: str, nz: int, nz_max: int):
+    """The launch guard of a kernel whose deepest column is nz_max: raise
+    ValueError outside NZ_MIN <= nz <= nz_max."""
+    if not NZ_MIN <= nz <= nz_max:
+        raise ValueError(f"{kernel}: the kernel takes {NZ_MIN} <= nz <= "
+                         f"{nz_max}, got nz={nz}")
+
+
+def launch(kernel: str, ref, ptrs, ints, dbls=()):
+    """Launch `kernel` for ref's dtype on PyTorch's current stream of ref's
+    device (which a CUDA graph capture holds): ptrs are device pointers
+    (`ptr`), ints and dbls the scalars, in the order of the entry point."""
+    if not ENTRY:
+        library()
+    p = array.array("Q", ptrs)
+    n = array.array("i", (len(ptrs), len(ints), len(dbls), *ints))
+    d = array.array("d", dbls)
+    check(ENTRY[kernel, ref.dtype](p.buffer_info()[0], n.buffer_info()[0],
+                                   d.buffer_info()[0], stream(ref)), kernel)
+
+
+def occupancy(kernel: str, ints, launches: int = 1) -> list:
+    """`occupancy_dict` of each of the kernel's launches for the launch
+    configuration that ints describe, as the library reports it."""
+    out = array.array("i", [0] * (5 * launches))
+    n = array.array("i", (len(ints), len(out), *ints))
+    if not ENTRY:
+        library()
+    check(ENTRY[kernel, "occupancy"](n.buffer_info()[0],
+                                     out.buffer_info()[0]),
+          f"{kernel} occupancy")
+    return [occupancy_dict(out[5 * q:5 * q + 5]) for q in range(launches)]
 
 
 def check_groups(ref, *groups):
@@ -151,12 +220,6 @@ def _refuse(name, t, shape, ref):
     raise ValueError(f"{name}: kernel needs a contiguous tensor")
 
 
-def check_inputs(shapes: dict, ref):
-    """`check_groups` with shapes: name -> (tensor, expected shape)."""
-    check_groups(ref, *((tuple(shape), name, (t,))
-                        for name, (t, shape) in shapes.items()))
-
-
 def compulsory_bytes(inputs, outputs) -> int:
     """Bytes a launch must move: each distinct input read once, each output
     written once (None entries are absent inputs; scratch is left out)."""
@@ -184,6 +247,12 @@ def occupancy_dict(out) -> dict:
             "stack": stack}
 
 
-def ptr(t) -> int | None:
-    """Device pointer of a tensor, or None (NULL) for an absent input."""
-    return None if t is None else t.data_ptr()
+def owned(f) -> int:
+    """An edge-ownership flag as a kernel takes it: None (a single block)
+    owns the edge."""
+    return 1 if f is None else int(bool(f))
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor, or 0 (NULL) for an absent input."""
+    return 0 if t is None else t.data_ptr()

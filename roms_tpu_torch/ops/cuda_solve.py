@@ -1,19 +1,17 @@
 """Implicit vertical momentum solve: the CUDA kernel and its plain
 PyTorch version (counterpart of roms_tpu/ops/pallas_solve.py).
 
-`momentum_implicit` launches `csrc/momentum_solve.cu` for a CUDA tensor
-and calls `momentum_implicit_plain` for a CPU tensor; any other device
-raises.  Its `launches` counts the launches and `last_bytes` holds the
-compulsory bytes of the last one.  A block of the kernel keeps CF and DC
-of its columns in shared memory, which the launch sizes from nz, so nz is
-capped at NZ_MAX; `occupancy` reports the launch configuration on the
-card.  The plain version mirrors roms_tpu/ops/vmix.py:momentum_implicit
-(reference: pre_step3d4S.F:377-424 / step3d_uv1.F:146-206).
+`momentum_implicit` launches `csrc/momentum_solve.cu` for a CUDA tensor,
+on a mesh block's padded grid too, and calls `momentum_implicit_plain`
+for a CPU tensor; any other device raises (`_build.dispatch`).  A block
+of the kernel keeps CF and DC of its columns in shared memory, which the
+launch sizes from nz, so nz is capped at NZ_MAX, and a deeper column
+raises; `occupancy` reports the launch configuration on the card.  The
+plain version mirrors roms_tpu/ops/vmix.py:momentum_implicit (reference:
+pre_step3d4S.F:377-424 / step3d_uv1.F:146-206).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -21,13 +19,6 @@ from roms_tpu_torch.config import ModelConfig
 from roms_tpu_torch.ops import _build
 
 NZ_MAX = 192                 # deepest column the kernel takes
-
-
-def check_nz(nz: int):
-    """Raise ValueError outside the kernel's 2 <= nz <= NZ_MAX."""
-    if not 2 <= nz <= NZ_MAX:
-        raise ValueError(f"momentum_implicit: the kernel takes 2 <= nz <= "
-                         f"{NZ_MAX}, got nz={nz}")
 
 
 def launch_bytes(nz: int, jy: int, ix: int, elem: int, drag: bool) -> int:
@@ -42,13 +33,16 @@ def momentum_implicit(rhs, hz_face, akv_face, wi_face, dc0, dtau, sstr,
     """Implicit vertical viscosity + implicit vertical advection solve for
     one momentum component at its staggered points; returns the velocity
     (nz, jy, ix).  Inputs as in `momentum_implicit_plain`."""
-    if rhs.device.type == "cpu":
-        return momentum_implicit_plain(rhs, hz_face, akv_face, wi_face, dc0,
-                                       dtau, sstr, cfg, bottom_drag_coeff)
+    return _build.dispatch(
+        "momentum_solve", True, momentum_implicit_plain, _launch, rhs,
+        hz_face, akv_face, wi_face, dc0, dtau, sstr, cfg, bottom_drag_coeff)
+
+
+def _launch(rhs, hz_face, akv_face, wi_face, dc0, dtau, sstr,
+            cfg: ModelConfig, bottom_drag_coeff=None):
+    """The kernel's path of `momentum_implicit` (same arguments)."""
     nz, jy, ix = rhs.shape
-    check_nz(nz)
-    if rhs.device.type != "cuda":
-        raise ValueError(f"momentum_implicit: no kernel for {rhs.device}")
+    _build.check_nz("momentum_solve", nz, NZ_MAX)
     drag = bottom_drag_coeff is not None
     _build.check_groups(
         rhs, ((nz, jy, ix), "rhs hz_face", (rhs, hz_face)),
@@ -56,22 +50,12 @@ def momentum_implicit(rhs, hz_face, akv_face, wi_face, dc0, dtau, sstr,
         ((jy, ix), "dc0 sstr bottom_drag_coeff",
          (dc0, sstr, bottom_drag_coeff) if drag else (dc0, sstr)))
     out = torch.empty_like(rhs)
-    lib = _build.library()
-    fn = (lib.roms_momentum_solve_f64 if rhs.dtype == torch.float64
-          else lib.roms_momentum_solve_f32)
-    err = fn(rhs.data_ptr(), hz_face.data_ptr(), akv_face.data_ptr(),
-             wi_face.data_ptr(), dc0.data_ptr(), sstr.data_ptr(),
-             bottom_drag_coeff.data_ptr() if drag else None, out.data_ptr(),
-             nz, jy, ix, float(dtau), _build.stream(rhs))
-    _build.check(err, "momentum_solve")
-    momentum_implicit.launches += 1
-    momentum_implicit.last_bytes = launch_bytes(nz, jy, ix,
-                                                rhs.element_size(), drag)
+    p = _build.ptr
+    _build.launch("momentum_solve", rhs,
+                  [p(rhs), p(hz_face), p(akv_face), p(wi_face), p(dc0),
+                   p(sstr), p(bottom_drag_coeff), p(out)], [nz, jy, ix],
+                  [float(dtau)])
     return out
-
-
-momentum_implicit.launches = 0
-momentum_implicit.last_bytes = 0
 
 
 def occupancy(dtype: torch.dtype, nz: int) -> dict:
@@ -80,11 +64,9 @@ def occupancy(dtype: torch.dtype, nz: int) -> dict:
     resident blocks and warps per SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), registers and stack
     bytes per thread."""
-    check_nz(nz)
-    out = (ctypes.c_int * 5)()
-    _build.check(_build.library().roms_momentum_solve_occupancy(
-        int(dtype == torch.float64), nz, out), "momentum_solve occupancy")
-    return _build.occupancy_dict(out)
+    _build.check_nz("momentum_solve", nz, NZ_MAX)
+    return _build.occupancy("momentum_solve",
+                            [int(dtype == torch.float64), nz])[0]
 
 
 def momentum_implicit_plain(rhs, hz_face, akv_face, wi_face, dc0, dtau,

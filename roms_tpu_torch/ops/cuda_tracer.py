@@ -6,21 +6,21 @@ PyTorch version (counterpart of roms_tpu/ops/pallas_tracer.py).
                       - dtau*pmn*div_v(spline_iface * We)
                       [+ dtau*stflx at the surface] )  [+ t3dmix tendency]
 
-`tracer_stage` launches `csrc/tracer_stage.cu` for a CUDA tensor and calls
-`tracer_stage_plain` for a CPU tensor; any other device raises.  Its
-`launches` counts the launches and `last_bytes` holds the compulsory
-bytes of the last one.  `launch_plan` picks the kernel's tile (rows of
-TILE_I columns, two threads a column) for a (type, nz): the block keeps
-two per-level arrays of its columns in shared memory, so nz is capped at
-NZ_MAX.  `occupancy` reports a launch configuration on the card.  The
-plain version composes the port's `advection` and `vmix` functions, as
-tests/test_pallas_tracer.py composes the JAX ones, plus the fused t3dmix
-tendency of the TPU kernel.
+`tracer_stage` launches `csrc/tracer_stage.cu` for a CUDA tensor and
+calls `tracer_stage_plain` for a CPU tensor; any other device raises
+(`_build.dispatch`).  `usable` is the step's gate: the configurations it
+refuses take the reference's batched branch, which never calls
+`tracer_stage`.  `launch_plan` picks the kernel's tile (rows of TILE_I
+columns, two threads a column) for a (type, nz): the block keeps two
+per-level arrays of its columns in shared memory, so nz is capped at
+NZ_MAX, and a deeper column raises.  `occupancy` reports a launch
+configuration on the card.  The plain version composes the port's
+`advection` and `vmix` functions, as tests/test_pallas_tracer.py composes
+the JAX ones, plus the fused t3dmix tendency of the TPU kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
 import types
 
 import torch
@@ -38,9 +38,6 @@ TILE_I = 32                  # columns of a tile along i (one warp)
 TILE_J = (4, 2, 1)           # tile rows the kernel takes, largest first
 NZ_MAX = 192                 # deepest column the kernel takes
 RING = 3                     # ring slots of the level tiles (NB in the .cu)
-SMEM_BLOCK = 232_448         # dynamic shared memory of one block, sm_90
-SMEM_SM = 233_472            # shared memory of one SM (228 KB) ...
-SMEM_RESERVED = 1_024        # ... of which each resident block reserves 1 KB
 THREADS_SM = 768             # the kernel's register cap leaves 768 an SM
 
 
@@ -66,15 +63,13 @@ def launch_plan(elem: int, nz: int, mix: bool) -> tuple[int, int]:
     among those, one that leaves at least two blocks per SM (one block's
     barriers then do not idle the SM), and then the tallest (its halo
     costs least).  Raises ValueError outside 2 <= nz <= NZ_MAX."""
-    if not 2 <= nz <= NZ_MAX:
-        raise ValueError(f"tracer_stage: the kernel takes 2 <= nz <= "
-                         f"{NZ_MAX}, got nz={nz}")
+    _build.check_nz("tracer_stage", nz, NZ_MAX)
     best = None
     for tj in TILE_J:
         b = smem_bytes(tj, nz, elem, mix)
-        if b > SMEM_BLOCK:
+        if b > _build.SMEM_BLOCK:
             continue
-        blocks = min(SMEM_SM // (b + SMEM_RESERVED),
+        blocks = min(_build.SMEM_SM // (b + _build.SMEM_RESERVED),
                      THREADS_SM // (2 * tj * TILE_I))
         key = (blocks * tj, min(blocks, 2), tj)
         if best is None or key > best[0]:
@@ -83,11 +78,10 @@ def launch_plan(elem: int, nz: int, mix: bool) -> tuple[int, int]:
 
 
 def usable(cfg: ModelConfig) -> bool:
-    """Whether the fused stage covers this configuration's tracer stage
-    (as roms_tpu/ops/pallas_tracer.py:usable)."""
-    return (not cfg.river_source
-            and not cfg.adv_isoneutral and not cfg.upscale_output
-            and not cfg.tracer_diagnostics
+    """Whether the kernel covers this configuration's tracer stage (as
+    roms_tpu/ops/pallas_tracer.py:usable)."""
+    return (not cfg.river_source and not cfg.adv_isoneutral
+            and not cfg.upscale_output and not cfg.tracer_diagnostics
             and cfg.pad_e == 0 and cfg.pad_n == 0)
 
 
@@ -123,15 +117,20 @@ def tracer_stage(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
     = single block, which owns every edge."""
     if mix is not None and mode != "corr":
         raise ValueError("tracer_stage: mix is a corrector-stage option")
-    if tk.device.type == "cpu":
-        return tracer_stage_plain(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we,
-                                  wi, akt, pmn, rmask, umask, vmask, cfg,
-                                  scheme, dtau, c_tk, c_sec, apply_mask,
-                                  mode, stflx=stflx, mix=mix, own=own)
+    return _build.dispatch(
+        "tracer_stage", True, tracer_stage_plain, _launch, tk, t_sec,
+        flx_u, flx_v, hz_a, hz_b, we, wi, akt, pmn, rmask, umask, vmask, cfg,
+        scheme, dtau, c_tk, c_sec, apply_mask, mode, stflx=stflx, mix=mix,
+        own=own)
+
+
+def _launch(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt, pmn, rmask,
+            umask, vmask, cfg: ModelConfig, scheme: AdvScheme, dtau: float,
+            c_tk: float, c_sec: float, apply_mask: bool, mode: str,
+            stflx=None, mix=None, own=None):
+    """The kernel's path of `tracer_stage` (same arguments)."""
     nt, nz, jy, ix = tk.shape
     tj, smem = launch_plan(tk.element_size(), nz, mix is not None)
-    if tk.device.type != "cuda":
-        raise ValueError(f"tracer_stage: no kernel for {tk.device}")
     if mode not in ("pred", "corr"):
         raise ValueError(f"mode must be 'pred' or 'corr', got {mode!r}")
     imix = max(cfg.i_t_and_s, 1)
@@ -142,48 +141,30 @@ def tracer_stage(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,
                          "(the kernel's offsets within a field are ints)")
     if akt.dim() != 4 or akt.shape[0] < imix:
         raise ValueError(f"tracer_stage: akt needs >= {imix} rows")
-    shapes = {"tk": (tk, (nt, nz, jy, ix)), "t_sec": (t_sec, (nt, nz, jy, ix)),
-              "flx_u": (flx_u, (nz, jy, ix)), "flx_v": (flx_v, (nz, jy, ix)),
-              "hz_a": (hz_a, (nz, jy, ix)), "hz_b": (hz_b, (nz, jy, ix)),
-              "we": (we, (nz + 1, jy, ix)), "wi": (wi, (nz + 1, jy, ix)),
-              "akt": (akt, (akt.shape[0], nz + 1, jy, ix)),
-              "pmn": (pmn, (jy, ix)), "rmask": (rmask, (jy, ix)),
-              "umask": (umask, (jy, ix)), "vmask": (vmask, (jy, ix))}
-    if stflx is not None:
-        shapes["stflx"] = (stflx, (nt, jy, ix))
-    if mix is not None:
-        shapes["diff2"] = (mix["diff2"], (nt, jy, ix))
-        shapes["pmon_u"] = (mix["pmon_u"], (jy, ix))
-        shapes["pnom_v"] = (mix["pnom_v"], (jy, ix))
-    _build.check_inputs(shapes, tk)
-    own_i = [1 if f is None else int(bool(f)) for f in
-             (own if own is not None else (None,) * 4)]
-
+    diff2, pmon_u, pnom_v = (None,) * 3 if mix is None else (
+        mix["diff2"], mix["pmon_u"], mix["pnom_v"])
+    f3, w3, p2 = (nz, jy, ix), (nz + 1, jy, ix), (jy, ix)
+    _build.check_groups(
+        tk, ((nt, nz, jy, ix), "tk t_sec", (tk, t_sec)),
+        (f3, "flx_u flx_v hz_a hz_b", (flx_u, flx_v, hz_a, hz_b)),
+        (w3, "we wi", (we, wi)), ((akt.shape[0], *w3), "akt", (akt,)),
+        (p2, "pmn rmask umask vmask", (pmn, rmask, umask, vmask)),
+        ((nt, jy, ix), "stflx", () if stflx is None else (stflx,)),
+        ((nt, jy, ix), "diff2", () if mix is None else (diff2,)),
+        (p2, "pmon_u pnom_v", () if mix is None else (pmon_u, pnom_v)))
     out = torch.empty_like(tk)
-    lib = _build.library()
-    fn = (lib.roms_tracer_stage_f64 if tk.dtype == torch.float64
-          else lib.roms_tracer_stage_f32)
     p = _build.ptr
-    mx = mix if mix is not None else {}
-    err = fn(p(tk), p(t_sec), p(flx_u), p(flx_v), p(hz_a), p(hz_b), p(we),
-             p(wi), p(akt), p(pmn), p(rmask), p(umask), p(vmask), p(stflx),
-             p(mx.get("diff2")), p(mx.get("pmon_u")), p(mx.get("pnom_v")),
-             p(out),
-             nt, nz, jy, ix, imix, _SCHEME_ID[scheme], int(mode == "corr"),
-             int(cfg.masking), int(cfg.ew_periodic), int(cfg.ns_periodic),
-             *own_i, int(apply_mask), tj, smem,
-             float(dtau), float(c_tk), float(c_sec),
-             torch.cuda.current_stream(tk.device).cuda_stream)
-    _build.check(err, "tracer_stage")
-    tracer_stage.launches += 1
-    tracer_stage.last_bytes = _build.compulsory_bytes(
-        (tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt[:imix], pmn, rmask,
-         umask, vmask, stflx, *mx.values()), (out,))
+    _build.launch(
+        "tracer_stage", tk,
+        [p(tk), p(t_sec), p(flx_u), p(flx_v), p(hz_a), p(hz_b), p(we),
+         p(wi), p(akt), p(pmn), p(rmask), p(umask), p(vmask), p(stflx),
+         p(diff2), p(pmon_u), p(pnom_v), p(out)],
+        [nt, nz, jy, ix, imix, _SCHEME_ID[scheme], int(mode == "corr"),
+         int(cfg.masking), int(cfg.ew_periodic), int(cfg.ns_periodic),
+         *map(_build.owned, own or (None,) * 4), int(apply_mask), tj,
+         smem],
+        [float(dtau), float(c_tk), float(c_sec)])
     return out
-
-
-tracer_stage.launches = 0
-tracer_stage.last_bytes = 0
 
 
 def occupancy(dtype: torch.dtype, nz: int, scheme: AdvScheme,
@@ -195,13 +176,10 @@ def occupancy(dtype: torch.dtype, nz: int, scheme: AdvScheme,
     stack bytes per thread."""
     elem = torch.empty((), dtype=dtype).element_size()
     tj, smem = launch_plan(elem, nz, mix)
-    out = (ctypes.c_int * 3)()
-    _build.check(_build.library().roms_tracer_stage_occupancy(
+    occ, = _build.occupancy("tracer_stage", [
         int(dtype == torch.float64), _SCHEME_ID[scheme], int(mix), tj, nz,
-        smem, out), "tracer_stage occupancy")
-    return {"tile_rows": tj, "threads": 2 * tj * TILE_I, "smem": smem,
-            "blocks_per_sm": out[0], "warps_per_sm": out[0] * 2 * tj,
-            "registers": out[1], "stack": out[2]}
+        smem])
+    return {"tile_rows": tj, **occ}
 
 
 def tracer_stage_plain(tk, t_sec, flx_u, flx_v, hz_a, hz_b, we, wi, akt,

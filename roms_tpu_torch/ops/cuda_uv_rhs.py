@@ -1,24 +1,20 @@
 """The 3D momentum r.h.s. (Coriolis, horizontal and SPLINE_UV vertical
 momentum advection): the CUDA kernel and its plain PyTorch version.
 
-`uv_rhs` launches `csrc/uv_rhs.cu` for a CUDA tensor and calls
-`uv_rhs_plain` for a CPU tensor; any other device raises.  Its `launches`
-counts the launches, `plain_calls` the calls that took the plain version
-instead (a CPU tensor here; in `stepper._uv_rhs` the budget's split and
-every configuration `usable` refuses), and `last_bytes` holds the
-compulsory bytes of the last launch.
-`launch_plan` picks the kernel's tile (rows of TILE_I columns, two threads
-a column): each thread keeps the spline's cf and fc of its column's nz
-levels in shared memory, so nz is capped at NZ_MAX.  `occupancy` reports a
-launch configuration on the card.  The plain version is the port's
-composition of `advection` functions (the JAX package's
+`uv_rhs` launches `csrc/uv_rhs.cu` for a CUDA tensor whose configuration
+`usable` admits and calls `uv_rhs_plain` for a CPU tensor, a
+configuration `usable` refuses, or the momentum budget's split (`parts`);
+any other device raises (`_build.dispatch`).  `launch_plan` picks the
+kernel's tile (rows of TILE_I columns, two threads a column): each thread
+keeps the spline's cf and fc of its column's nz levels in shared memory,
+so nz is capped at NZ_MAX, and a deeper column raises.  `occupancy`
+reports a launch configuration on the card.  The plain version is the
+port's composition of `advection` functions (the JAX package's
 roms_tpu/stepper.py:_uv_rhs; reference: compute_horiz_rhs_uv_terms.h +
 compute_vert_rhs_uv_terms.h).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -28,9 +24,6 @@ from roms_tpu_torch.ops import advection as adv
 
 TILE_I = 32                  # columns of a tile along i (one warp a half)
 NZ_MAX = 192                 # deepest column the kernel takes
-SMEM_BLOCK = 232_448         # dynamic shared memory of one block, sm_90
-SMEM_SM = 233_472            # shared memory of one SM (228 KB) ...
-SMEM_RESERVED = 1_024        # ... of which each resident block reserves 1 KB
 # threads an SM can hold at the kernel's register cap (float 144 a thread,
 # double 255), which is also a block's largest size
 THREADS_SM = {4: 448, 8: 256}
@@ -43,25 +36,18 @@ def smem_bytes(tj: int, nz: int, elem: int) -> int:
     return 2 * nz * 2 * TILE_I * tj * elem
 
 
-def check_nz(nz: int):
-    """Raise ValueError outside the kernel's 2 <= nz <= NZ_MAX."""
-    if not 2 <= nz <= NZ_MAX:
-        raise ValueError(f"uv_rhs: the kernel takes 2 <= nz <= {NZ_MAX}, "
-                         f"got nz={nz}")
-
-
 def launch_plan(elem: int, nz: int) -> tuple[int, int]:
     """(tile rows, shared-memory bytes) of a launch: the tile that keeps
     the most threads resident on an SM (limited by shared memory and by
     the register cap), the tallest among those (its halo rows are read
     by fewer blocks).  Raises ValueError outside 2 <= nz <= NZ_MAX."""
-    check_nz(nz)
+    _build.check_nz("uv_rhs", nz, NZ_MAX)
     best = None
     for tj in range(1, THREADS_SM[elem] // (2 * TILE_I) + 1):
         b = smem_bytes(tj, nz, elem)
-        if b > SMEM_BLOCK:
+        if b > _build.SMEM_BLOCK:
             break
-        blocks = min(SMEM_SM // (b + SMEM_RESERVED),
+        blocks = min(_build.SMEM_SM // (b + _build.SMEM_RESERVED),
                      THREADS_SM[elem] // (2 * TILE_I * tj))
         key = (blocks * tj, tj)
         if best is None or key > best[0]:
@@ -71,27 +57,24 @@ def launch_plan(elem: int, nz: int) -> tuple[int, int]:
 
 def usable(cfg: ModelConfig) -> bool:
     """Whether the kernel covers this configuration's momentum r.h.s.: a
-    column it can hold, and a grid without the mesh's divisibility pad
-    (the step's budget path, `parts`, keeps the plain version)."""
-    return 2 <= cfg.nz <= NZ_MAX and cfg.pad_e == 0 and cfg.pad_n == 0
-
-
-def _owned(f) -> int:
-    """An edge-ownership flag as the kernel takes it: None (a single
-    block) owns the edge."""
-    return 1 if f is None else int(bool(f))
+    grid without the mesh's divisibility pad."""
+    return cfg.pad_e == 0 and cfg.pad_n == 0
 
 
 def uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig,
-           scheme: AdvScheme):
+           scheme: AdvScheme, parts: bool = False):
     """(ru, rv), each (nz, jy, ix): the Coriolis, horizontal and vertical
-    momentum advection r.h.s. of `uv_rhs_plain` (same arguments, without
-    `parts`)."""
-    if u.device.type == "cpu":
-        uv_rhs.plain_calls += 1
-        return uv_rhs_plain(u, v, flx_u, flx_v, hz, we, grid, cfg, scheme)
-    if u.device.type != "cuda":
-        raise ValueError(f"uv_rhs: no kernel for {u.device}")
+    momentum advection r.h.s. of `uv_rhs_plain` (same arguments); with
+    parts=True, which the kernel does not split, the plain version's
+    (ru, rv, cori_u, cori_v)."""
+    return _build.dispatch("uv_rhs", usable(cfg) and not parts,
+                           uv_rhs_plain, _launch, u, v, flx_u, flx_v, hz,
+                           we, grid, cfg, scheme, parts=parts)
+
+
+def _launch(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig,
+            scheme: AdvScheme, parts: bool = False):
+    """The kernel's path of `uv_rhs` (same arguments, parts False)."""
     nz, jy, ix = u.shape
     tj, smem = launch_plan(u.element_size(), nz)
     if jy < 6 or ix < 6:
@@ -110,30 +93,18 @@ def uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig,
         ((jy, ix), "fomn umask vmask dndx dmde", plane))
     ru = torch.empty_like(u)
     rv = torch.empty_like(v)
-    lib = _build.library()
-    fn = (lib.roms_uv_rhs_f64 if u.dtype == torch.float64
-          else lib.roms_uv_rhs_f32)
     p = _build.ptr
-    err = fn(p(u), p(v), p(flx_u), p(flx_v), p(hz), p(we), p(grid.fomn),
-             p(grid.dndx) if curv else None, p(grid.dmde) if curv else None,
-             p(grid.umask), p(grid.vmask), p(ru), p(rv),
-             nz, jy, ix, int(scheme is AdvScheme.UPSTREAM3), int(cor),
-             int(curv), int(cfg.uv_adv), int(cfg.masking),
-             int(cfg.ew_periodic), int(cfg.ns_periodic), _owned(grid.own_w),
-             _owned(grid.own_e), _owned(grid.own_s), _owned(grid.own_n), tj,
-             smem, _build.stream(u))
-    _build.check(err, "uv_rhs")
-    uv_rhs.launches += 1
-    reads = (u, v, flx_u, flx_v, hz, we, grid.fomn) + (
-        (grid.dndx, grid.dmde) if curv else ()) + (
-        (grid.umask, grid.vmask) if cfg.masking and cfg.uv_adv else ())
-    uv_rhs.last_bytes = _build.compulsory_bytes(reads, (ru, rv))
+    _build.launch(
+        "uv_rhs", u,
+        [p(u), p(v), p(flx_u), p(flx_v), p(hz), p(we), p(grid.fomn),
+         p(grid.dndx) if curv else 0, p(grid.dmde) if curv else 0,
+         p(grid.umask), p(grid.vmask), p(ru), p(rv)],
+        [nz, jy, ix, int(scheme is AdvScheme.UPSTREAM3), int(cor),
+         int(curv), int(cfg.uv_adv), int(cfg.masking), int(cfg.ew_periodic),
+         int(cfg.ns_periodic),
+         *map(_build.owned, (grid.own_w, grid.own_e, grid.own_s,
+                             grid.own_n)), tj, smem])
     return ru, rv
-
-
-uv_rhs.launches = 0
-uv_rhs.plain_calls = 0
-uv_rhs.last_bytes = 0
 
 
 def occupancy(dtype: torch.dtype, nz: int, scheme: AdvScheme) -> dict:
@@ -144,11 +115,10 @@ def occupancy(dtype: torch.dtype, nz: int, scheme: AdvScheme) -> dict:
     stack bytes per thread."""
     elem = torch.empty((), dtype=dtype).element_size()
     tj, smem = launch_plan(elem, nz)
-    out = (ctypes.c_int * 5)()
-    _build.check(_build.library().roms_uv_rhs_occupancy(
+    occ, = _build.occupancy("uv_rhs", [
         int(dtype == torch.float64), int(scheme is AdvScheme.UPSTREAM3), tj,
-        nz, smem, out), "uv_rhs occupancy")
-    return {"tile_rows": tj, **_build.occupancy_dict(out)}
+        nz, smem])
+    return {"tile_rows": tj, **occ}
 
 
 def uv_rhs_plain(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig,

@@ -127,15 +127,10 @@ def _bracket(device, spent, layers):
             _sync(device)
             spent[_name] += time.perf_counter() - t0
             return out
-        if hasattr(fn, "launches"):
-            # the kernel wrappers count on their module-level name
-            timed.launches = fn.launches
         setattr(mod, name, timed)
 
     def restore():
         for mod, name, fn in originals:
-            if hasattr(fn, "launches"):
-                fn.launches = getattr(mod, name).launches
             setattr(mod, name, fn)
     return restore
 

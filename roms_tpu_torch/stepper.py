@@ -3,23 +3,24 @@ forward-backward barotropic sub-cycle (port of roms_tpu/stepper.py;
 reference: src/main.F:333-520, pre_step3d4S.F, step3d_uv1.F,
 step3d_uv2.F, step3d_t_ISO.F).
 
-All four implicit momentum solves go through `cuda_solve.momentum_implicit`
-and, under LMD_KPP, both vertical-mixing updates through
-`cuda_kpp.vmix_update` for every configuration that `cuda_kpp.usable`
-admits (not a mesh block's padded grid, whose updates take the plain
-version, as the JAX package's gate does).  Both momentum r.h.s. calls
-(`_uv_rhs`) go through `cuda_uv_rhs.uv_rhs` where `cuda_uv_rhs.usable`
-admits the configuration, the momentum budget's split excepted.  Both
-tracer stages go through `cuda_tracer.tracer_stage` for every
-configuration that `cuda_tracer.usable` admits; the others (river
-sources, the options of
+All four implicit momentum solves go through `cuda_solve.momentum_implicit`,
+under LMD_KPP both vertical-mixing updates through `cuda_kpp.vmix_update`,
+and both momentum r.h.s. calls (`_uv_rhs`) through `cuda_uv_rhs.uv_rhs`,
+the momentum budget's split taking the plain version.  Each wrapper
+decides its own path (`ops/_build.py:dispatch`): its plain version on the
+CPU, its CUDA kernel on the card, and the plain version there too where
+its module's `usable` refuses the configuration (a mesh block's padded
+grid for KPP and the momentum r.h.s., as the JAX package's gate does);
+a column deeper than a kernel's NZ_MAX raises.  Both tracer stages go
+through `cuda_tracer.tracer_stage` for every configuration that
+`cuda_tracer.usable` admits; the others (river sources, the options of
 the batched branch, a padded grid) take the reference's batched tracer
-branch, whose river flux fix sits inside the stencil.  Those gates decide
-the paths: never the device, the dtype or a build.  Each wrapper launches its CUDA kernel on the card and
-runs its plain version on the CPU.  Point loads (pipes, mCDR releases)
-enter both tracer paths; the BGC column physics (`bgc_update`) follows
-the corrector's boundary conditions, inside the span `roms.bgc`, and
-`bgc_stats` counts its calls and the host seconds of each.
+branch, whose river flux fix sits inside the stencil.
+Those gates decide the paths: never the dtype or a build.  Point loads
+(pipes, mCDR releases) enter both tracer paths; the BGC column physics
+(`bgc_update`) follows the corrector's boundary conditions, inside the
+span `roms.bgc`, and `bgc_stats` counts its calls and the host seconds of
+each.
 
 The rotated (isoneutral) biharmonic, the upscale capture and the tracer
 budget live on the batched branch only, as `cuda_tracer.usable` says.
@@ -58,12 +59,6 @@ AM3_CRV = 1.0 / 6.0  # (reference: pre_step3d4S.F:83)
 # calls of `bgc_update`, traced or not, and the host seconds of the most
 # recent ones (time.perf_counter around the call, no synchronize)
 bgc_stats = {"calls": 0, "host_s": deque(maxlen=4096)}
-
-
-def _unsupported(cfg: ModelConfig):
-    """Names of the enabled step features the port does not carry: none,
-    since every flag of the JAX package's step is ported."""
-    return []
 
 
 def _tracer_divergence(fx, fe, pmn):
@@ -105,18 +100,14 @@ def _kpp_sources(state: OceanState, forcing: Forcing, ghat, wi,
 def _uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg: ModelConfig, scheme,
             parts: bool = False):
     """Coriolis + horizontal + vertical momentum advection r.h.s.
-    (reference: compute_horiz_rhs_uv_terms.h + compute_vert_rhs_uv_terms.h):
-    `cuda_uv_rhs.uv_rhs` where `cuda_uv_rhs.usable` admits the
-    configuration, else its plain version.
+    (reference: compute_horiz_rhs_uv_terms.h + compute_vert_rhs_uv_terms.h)
+    through `cuda_uv_rhs.uv_rhs`.
 
-    With parts=True (the momentum budget, which keeps the plain version)
+    With parts=True (the momentum budget, which takes the plain version)
     also returns the Coriolis part (cori_u, cori_v)
     (reference: diagnostics.F icori/iadv)."""
-    if parts or not cuda_uv_rhs.usable(cfg):
-        cuda_uv_rhs.uv_rhs.plain_calls += 1
-        return cuda_uv_rhs.uv_rhs_plain(u, v, flx_u, flx_v, hz, we, grid,
-                                        cfg, scheme, parts=parts)
-    return cuda_uv_rhs.uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg, scheme)
+    return cuda_uv_rhs.uv_rhs(u, v, flx_u, flx_v, hz, we, grid, cfg, scheme,
+                              parts=parts)
 
 
 def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
@@ -126,10 +117,6 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
     roms.predictor, roms.corrector_3d, roms.fast_loop (opened by
     `barotropic.fast_loop`), roms.uv2, roms.tracer_corrector and
     roms.finish, with roms.bgc inside it where a BGC engine runs."""
-    missing = _unsupported(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported in this slice: " + ", ".join(missing))
     pmn = grid.pm * grid.pn
     hz_n = state.hz
     zw_n, zr_n = state.z_w, state.z_r
@@ -162,12 +149,11 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
                               dtau_o, cfg, forcing)
         we, wi = halo(om.we), halo(om.wi)
 
-        vmix_update = (cuda_kpp.vmix_update if cuda_kpp.usable(cfg)
-                       else cuda_kpp.vmix_update_plain)
         if cfg.lmd_kpp:
             # lmd_vmix + lmd_kpp at time n (reference: main.F:408-410)
-            vm = vmix_update(state, state.u, state.v, state.t, eos_n.bvf, zr_n,
-                             zw_n, hz_n, forcing, grid, cfg, first_step)
+            vm = cuda_kpp.vmix_update(state, state.u, state.v, state.t,
+                                      eos_n.bvf, zr_n, zw_n, hz_n, forcing,
+                                      grid, cfg, first_step)
             akv, akt = halo(vm.akv), halo(vm.akt)
             # (reference: lmd_kpp.F exchanges hbls/hbbl after smoothing)
             hbls, hbbl = halo(vm.hbls), halo(vm.hbbl)
@@ -272,9 +258,10 @@ def step_impl(state: OceanState, forcing: Forcing, grid: Grid, w1, w2,
                             need_bvf=cfg.lmd_kpp)
         if cfg.lmd_kpp:
             # at n+1/2, from the predictor's boundary layers (main.F:434-436)
-            vm = vmix_update(state.replace(hbls=hbls, hbbl=hbbl), u_half,
-                             v_half, t_half, eos_h.bvf, zr_n, zw_n, hz_n,
-                             forcing, grid, cfg, first_step)
+            vm = cuda_kpp.vmix_update(state.replace(hbls=hbls, hbbl=hbbl),
+                                      u_half, v_half, t_half, eos_h.bvf,
+                                      zr_n, zw_n, hz_n, forcing, grid, cfg,
+                                      first_step)
             akv, akt, ghat = halo(vm.akv), halo(vm.akt), vm.ghat
             hbls, hbbl = halo(vm.hbls), halo(vm.hbbl)
         ru_p, rv_p = prsgrd_mod.prsgrd(eos_h.rho, eos_h.rho1, eos_h.qp1,

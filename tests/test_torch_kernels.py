@@ -25,8 +25,8 @@ from roms_tpu.config import AdvScheme
 from roms_tpu.ops import pallas_solve, pallas_tracer
 
 from roms_tpu_torch.config import AdvScheme as TAdvScheme
-from roms_tpu_torch.config import ModelConfig as TModelConfig
-from roms_tpu_torch.ops import _harness, cuda_solve, cuda_tracer, cuda_uv_rhs
+from roms_tpu_torch.ops import (_build, _harness, cuda_solve, cuda_tracer,
+                                cuda_uv_rhs)
 
 from torch_helpers import jax_cfg
 
@@ -68,10 +68,11 @@ def _run_both(cfg, d, hz_b, scheme, dtau, c_tk, c_sec, apply_mask, mode,
                       for k, v in mix.items()}
     args = (dtau, c_tk, c_sec, apply_mask, mode)
     ref = pallas_tracer.tracer_stage(*j, jax_cfg(cfg), scheme, *args, **jkw)
-    before = cuda_tracer.tracer_stage.launches
+    before = _build.kernel_stats["tracer_stage"]["launches"]
     got = cuda_tracer.tracer_stage(*t, cfg, TAdvScheme[scheme.name], *args,
                                    **tkw)
-    assert cuda_tracer.tracer_stage.launches == before   # CPU: no launch
+    # CPU: no launch
+    assert _build.kernel_stats["tracer_stage"]["launches"] == before
     return got.numpy(), np.asarray(ref)
 
 
@@ -137,10 +138,10 @@ def test_momentum_solve_matches_pallas(drag):
     js, ts = _both("sstr", d)
     ref = pallas_solve.momentum_implicit(
         *j, 200.0, js, jax_cfg(cfg), bottom_drag_coeff=jd if drag else None)
-    before = cuda_solve.momentum_implicit.launches
+    before = _build.kernel_stats["momentum_solve"]["launches"]
     got = cuda_solve.momentum_implicit(
         *t, 200.0, ts, cfg, bottom_drag_coeff=td if drag else None)
-    assert cuda_solve.momentum_implicit.launches == before
+    assert _build.kernel_stats["momentum_solve"]["launches"] == before
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
 
@@ -186,27 +187,12 @@ def test_uv_rhs_matches_jax_stepper(case):
         for n in (0, 1)]
     ref = jstepper._uv_rhs(*[_both(k, d)[0] for k in names], grids[0],
                            jax_cfg(cfg), scheme)
-    before = cuda_uv_rhs.uv_rhs.launches, cuda_uv_rhs.uv_rhs.plain_calls
+    stats = _build.kernel_stats["uv_rhs"]
+    before = stats["launches"], stats["plain"]
     got = cuda_uv_rhs.uv_rhs(*[_both(k, d)[1] for k in names], grids[1],
                              cfg, TAdvScheme[scheme.name])
     # CPU: the plain version, no launch
-    assert (cuda_uv_rhs.uv_rhs.launches,
-            cuda_uv_rhs.uv_rhs.plain_calls) == (before[0], before[1] + 1)
+    assert (stats["launches"], stats["plain"]) == (before[0], before[1] + 1)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12,
                                    atol=1e-12)
-
-
-def test_wrappers_never_fall_back():
-    """A tensor on a device with no kernel raises; nothing moves to the
-    CPU plain version."""
-    cfg = TModelConfig(nx=NX, ny=NY, nz=NZ)
-    m = torch.empty((NZ, JY, IX), dtype=torch.float64, device="meta")
-    m2 = torch.empty((JY, IX), dtype=torch.float64, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        cuda_solve.momentum_implicit(m, m, m, m, m2, 1.0, m2, cfg)
-    t4 = torch.empty((NT, NZ, JY, IX), dtype=torch.float64, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        cuda_tracer.tracer_stage(t4, t4, m, m, m, m, m, m, m, m2, m2, m2, m2,
-                                 cfg, TAdvScheme.UPSTREAM3, 1.0, 0.0, 1.0,
-                                 True, "corr")

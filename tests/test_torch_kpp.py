@@ -31,7 +31,7 @@ import torch
 from roms_tpu.ops import kpp as jkpp
 from roms_tpu.ops import pallas_kpp
 
-from roms_tpu_torch.ops import _harness, cuda_kpp
+from roms_tpu_torch.ops import _build, _harness, cuda_kpp
 from roms_tpu_torch.ops import kpp as tkpp
 
 from torch_helpers import jax_cfg
@@ -162,11 +162,11 @@ def test_vmix_update_matches_pallas(name, first_step):
                                  j["z_r"], j["z_w"], j["hz"], jfrc, jgrid,
                                  jc, first_step)
     tgrid, tstate, tfrc = _ns(t)
-    before = cuda_kpp.vmix_update.launches
+    before = _build.kernel_stats["kpp_vmix"]["launches"]
     got = cuda_kpp.vmix_update(tstate, t["u"], t["v"], t["t"], t["bvf"],
                                t["z_r"], t["z_w"], t["hz"], tfrc, tgrid,
                                cfg, first_step)
-    assert cuda_kpp.vmix_update.launches == before      # CPU: no launch
+    assert _build.kernel_stats["kpp_vmix"]["launches"] == before  # CPU
     for field in ref._fields:
         _close(getattr(got, field), getattr(ref, field), interior=True)
 
@@ -211,10 +211,10 @@ def test_vmix_update_with_ownership_matches_jax(name, first_step):
                        j["hz"], kv, kt, ks, jstate.swrf, jfrc, jstate.hbls,
                        jstate.hbbl, jgrid, jc, first_step)
     tgrid, tstate, tfrc = _ns(t, own)
-    before = cuda_kpp.vmix_update.launches
+    before = _build.kernel_stats["kpp_vmix"]["launches"]
     got = cuda_kpp.vmix_update(tstate, t["u"], t["v"], t["t"], t["bvf"],
                                t["z_r"], t["z_w"], t["hz"], tfrc, tgrid,
                                cfg, first_step)
-    assert cuda_kpp.vmix_update.launches == before      # CPU: no launch
+    assert _build.kernel_stats["kpp_vmix"]["launches"] == before  # CPU
     for field in ref._fields:
         _close(getattr(got, field), getattr(ref, field))

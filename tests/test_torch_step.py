@@ -20,9 +20,8 @@
     without one rather than falling back to the CPU;
 (g) a step with each of the five options that earlier slices refused
     (adv_isoneutral, non_hydrostatic, tracer_diagnostics, uv_diagnostics,
-    upscale_output) runs, and `stepper._unsupported` names none of them;
-    the bridge carries a state with the budget and upscale dicts, nested
-    for uv_budget, both ways.
+    upscale_output) runs; the bridge carries a state with the budget
+    and upscale dicts, nested for uv_budget, both ways.
 """
 
 import dataclasses
@@ -282,7 +281,6 @@ FLAGS = ("adv_isoneutral", "non_hydrostatic", "tracer_diagnostics",
 def test_step_takes_every_option(flag):
     cfg = tbasin.config("radiating").replace(nx=12, ny=10, nz=4, ndtfast=6,
                                              nh_iters=5, **{flag: True})
-    assert stepper._unsupported(cfg) == []
     grid, st, frc = tbasin.setup(cfg, device="cpu")
     st, _ = run(grid, st, frc, cfg, nsteps=1, collect_diag=False)
     assert bool(torch.isfinite(st.u).all())

@@ -1,14 +1,23 @@
-"""What of the CUDA kernels can be checked without a card.
+"""What of the CUDA kernels' entry points and of the tracer kernel's
+launch planner can be checked without a card.
 
 The ctypes argument lists of `roms_tpu_torch.ops._build.ENTRY_POINTS`
-against the `extern "C"` signatures in `roms_tpu_torch/csrc/*.cu` (a
-mismatch would otherwise show only on the card, as garbage arguments),
-and the tracer kernel's launch planner (`ops/cuda_tracer.py:launch_plan`):
-every (type, nz) it accepts fits one block's shared memory, the
-production width keeps three blocks an SM, and nz outside the kernel's
-range raises before any launch.
+against the `extern "C"` signatures in `roms_tpu_torch/csrc/*.cu`, and
+the lengths of the arrays each wrapper passes (its launch path run on
+the CPU into a stand-in library, `torch_kernel_args.FakeLibrary`) against
+the kernel's `LENGTHS`, which its entry points check: a mismatch would
+otherwise show only on the card.  The tracer kernel's launch planner
+(`ops/cuda_tracer.py:launch_plan`): every (type, nz) it accepts fits one
+block's shared memory, and the production width keeps three blocks an SM.
+
+On the card (marked `h100`; skipped where there is no CUDA device, decided
+inside the test) each entry point refuses lengths other than its own.
+This file imports nothing of JAX; on the card:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracer_launch.py
 """
 
+import array
 import ctypes
 import re
 from pathlib import Path
@@ -16,8 +25,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from roms_tpu_torch.config import AdvScheme, ModelConfig
+from roms_tpu_torch.config import AdvScheme
 from roms_tpu_torch.ops import _build, cuda_tracer
+
+import torch_kernel_args as ka
 
 torch.set_num_threads(1)
 
@@ -35,24 +46,18 @@ def _kind(param: str) -> str:
 
 
 def _signatures() -> dict:
-    """{entry point: [kind of each parameter]} from the sources, with
-    ROMS_*_ENTRY macros expanded by their instantiations."""
+    """{entry point: ([kind of each parameter], the source's LENGTHS)}."""
     sigs = {}
     for path in sorted(CSRC.glob("*.cu")):
         src = path.read_text()
-        joined = src.replace("\\\n", " ")
-        macros = {}
-        for m in re.finditer(r'#define (\w+)\(NAME, T\)\s+extern "C" int '
-                             r'NAME\((.*?)\)\s*\{', joined, re.S):
-            macros[m.group(1)] = m.group(2)
-        for name, params in macros.items():
-            for inst in re.finditer(rf"^{name}\((\w+), \w+\)", src, re.M):
-                sigs[inst.group(1)] = params
+        lengths = tuple(map(int, re.search(
+            r"constexpr Lengths LENGTHS = \{([\d, ]+)\};", src)
+            .group(1).split(",")))
         for m in re.finditer(r'^extern "C" int (\w+)\((.*?)\)\s*\{', src,
                              re.S | re.M):
-            sigs[m.group(1)] = m.group(2)
-    return {name: [_kind(p) for p in params.split(",")]
-            for name, params in sigs.items()}
+            sigs[m.group(1)] = ([_kind(p) for p in m.group(2).split(",")],
+                                lengths)
+    return sigs
 
 
 def _ctypes_kind(t) -> str:
@@ -65,18 +70,42 @@ def _ctypes_kind(t) -> str:
     raise ValueError(f"unexpected argtype {t}")
 
 
+# the occupancy query of each kernel at nz = 60 in float32
+OCCUPANCY = {
+    "tracer_stage": lambda: cuda_tracer.occupancy(
+        torch.float32, 60, AdvScheme.UPSTREAM3, True),
+    "momentum_solve": lambda: ka.MODULES["momentum_solve"].occupancy(
+        torch.float32, 60),
+    "kpp_vmix": lambda: ka.MODULES["kpp_vmix"].occupancy(torch.float32, 60),
+    "uv_rhs": lambda: ka.MODULES["uv_rhs"].occupancy(
+        torch.float32, 60, AdvScheme.CENTERED4),
+}
+
+
 def test_every_entry_point_is_in_the_sources():
     assert set(_signatures()) == set(_build.ENTRY_POINTS)
 
 
 @pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
-def test_argtypes_match_the_c_signature(name):
-    """Same order of pointer, int and double parameters: ctypes passes
-    each argument as its argtype says, so a missing int shifts every
-    later argument."""
-    c_kinds = _signatures()[name]
-    py_kinds = [_ctypes_kind(t) for t in _build.ENTRY_POINTS[name]]
-    assert py_kinds == c_kinds
+def test_argtypes_match_the_c_signature(name, monkeypatch):
+    """Same parameters (the one form: arrays and the stream, as
+    pointers), and the lengths heading the int array that the wrapper
+    builds are the C side's: ctypes passes each argument as its argtype
+    says, and the entry point refuses other lengths."""
+    c_kinds, lengths = _signatures()[name]
+    assert [_ctypes_kind(t) for t in _build.ENTRY_POINTS[name]] == c_kinds
+    kernel, kind = re.fullmatch(r"roms_(\w+)_(f32|f64|occupancy)",
+                                name).groups()
+    lib = ka.fake_library(monkeypatch)
+    if kind == "occupancy":
+        OCCUPANCY[kernel]()
+        expected = lengths[3:]
+    else:
+        a, kw = ka.args(kernel, 60, dtype=torch.float64 if kind == "f64"
+                        else torch.float32)
+        ka.MODULES[kernel]._launch(*a, **kw)
+        expected = lengths[:3]
+    assert lib.calls == [(name, expected)]
 
 
 @pytest.mark.parametrize("mix", [False, True])
@@ -87,14 +116,7 @@ def test_every_accepted_nz_fits_one_block(dtype, mix):
         tj, smem = cuda_tracer.launch_plan(elem, nz, mix)
         assert tj in cuda_tracer.TILE_J
         assert smem == cuda_tracer.smem_bytes(tj, nz, elem, mix)
-        assert smem <= cuda_tracer.SMEM_BLOCK == 232_448
-
-
-def test_nz_max_reaches_every_depth_the_repo_uses():
-    assert cuda_tracer.NZ_MAX >= 128
-    for nz in (10, 16, 32, 60):
-        for elem in (4, 8):
-            cuda_tracer.launch_plan(elem, nz, True)
+        assert smem <= _build.SMEM_BLOCK == 232_448
 
 
 @pytest.mark.parametrize("mix", [False, True])
@@ -103,25 +125,31 @@ def test_production_width_keeps_three_blocks_an_sm(mix):
     of 32 x 4 columns, three blocks (24 warps) an SM by shared memory."""
     tj, smem = cuda_tracer.launch_plan(4, 60, mix)
     assert tj == 4
-    blocks = cuda_tracer.SMEM_SM // (smem + cuda_tracer.SMEM_RESERVED)
+    blocks = _build.SMEM_SM // (smem + _build.SMEM_RESERVED)
     assert blocks >= 3
     assert 3 * 2 * tj * cuda_tracer.TILE_I <= cuda_tracer.THREADS_SM
 
 
-@pytest.mark.parametrize("nz", [1, cuda_tracer.NZ_MAX + 1])
-def test_nz_outside_the_kernel_raises(nz):
-    """The wrapper refuses such a column before it looks at the device:
-    shown on meta tensors, which take no memory."""
-    jy, ix, nt = 8, 36, 2
-    cfg = ModelConfig(nx=ix - 4, ny=jy - 4, nz=nz, nt=nt)
-
-    def m(*shape):
-        return torch.empty(shape, dtype=torch.float32, device="meta")
-
-    t4, f3, w3, p2 = m(nt, nz, jy, ix), m(nz, jy, ix), m(nz + 1, jy, ix), \
-        m(jy, ix)
-    with pytest.raises(ValueError, match="nz"):
-        cuda_tracer.tracer_stage(t4, t4, f3, f3, f3, f3, w3, w3,
-                                 m(2, nz + 1, jy, ix), p2, p2, p2, p2, cfg,
-                                 AdvScheme.UPSTREAM3, 1.0, 0.0, 1.0, True,
-                                 "corr")
+# ---------------------------------------------------------------- the card
+@pytest.mark.h100
+@pytest.mark.parametrize("name", sorted(_build.ENTRY_POINTS))
+def test_entry_point_refuses_other_lengths(name):
+    """Each entry point returns cudaErrorInvalidValue (1) for any length
+    heading n other than its kernel's, one too many or one too few, before
+    it reads anything else (on the card, where the library builds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the test runs only on the card")
+    _, lengths = _signatures()[name]
+    fn = getattr(_build.library(), name)
+    occupancy = name.endswith("_occupancy")
+    head = list(lengths[3:] if occupancy else lengths[:3])
+    big = array.array("d", [0.0] * 64)      # room for any array read
+    for k in range(len(head)):
+        for off in (-1, 1):
+            wrong = head.copy()
+            wrong[k] += off
+            n = array.array("i", wrong + [0] * 64)
+            at = n.buffer_info()[0]
+            err = fn(at, big.buffer_info()[0]) if occupancy else fn(
+                big.buffer_info()[0], at, big.buffer_info()[0], 0)
+            assert err == 1, (wrong, err)

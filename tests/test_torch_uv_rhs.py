@@ -2,11 +2,11 @@
 
 On the CPU (float64, one thread): the launch planner (every accepted
 (type, nz) fits one block's shared memory; the benchmark's depths keep
-the most threads an SM; nz outside the kernel's range raises before any
-launch), the gate (`usable`) and the step's dispatch (`stepper._uv_rhs`:
-the wrapper where the gate admits the configuration, the plain version
-for the budget's split and for a padded grid), the counters, and a
-device without a kernel refused.  tests/test_torch_kernels.py holds the
+the most threads an SM), the step's dispatch (`stepper._uv_rhs` calls
+the wrapper, which takes the plain version itself for a CPU tensor, a
+padded grid or the budget's split) and the counter.
+tests/test_torch_column_launch.py holds the gate, the nz range and the
+device rule of all four kernels, and tests/test_torch_kernels.py the
 plain version to the JAX package's `stepper._uv_rhs`.
 
 On the card (marked `h100`; each test skips where there is no CUDA
@@ -31,8 +31,8 @@ import pytest
 import torch
 
 from roms_tpu_torch import stepper
-from roms_tpu_torch.config import AdvScheme, ModelConfig
-from roms_tpu_torch.ops import _harness, cuda_uv_rhs
+from roms_tpu_torch.config import AdvScheme
+from roms_tpu_torch.ops import _build, _harness, cuda_uv_rhs
 
 torch.set_num_threads(1)
 
@@ -55,7 +55,7 @@ def test_every_accepted_nz_fits_one_block(elem):
     for nz in range(2, cuda_uv_rhs.NZ_MAX + 1):
         tj, smem = cuda_uv_rhs.launch_plan(elem, nz)
         assert smem == cuda_uv_rhs.smem_bytes(tj, nz, elem)
-        assert smem <= cuda_uv_rhs.SMEM_BLOCK
+        assert smem <= _build.SMEM_BLOCK
         assert 2 * cuda_uv_rhs.TILE_I * tj <= cuda_uv_rhs.THREADS_SM[elem]
 
 
@@ -66,41 +66,27 @@ def test_benchmark_depths_keep_the_most_threads(nz, tj, threads):
     SM, one block of tj rows."""
     got, smem = cuda_uv_rhs.launch_plan(4, nz)
     assert got == tj
-    blocks = cuda_uv_rhs.SMEM_SM // (smem + cuda_uv_rhs.SMEM_RESERVED)
+    blocks = _build.SMEM_SM // (smem + _build.SMEM_RESERVED)
     assert blocks * 2 * cuda_uv_rhs.TILE_I * tj == threads
     for other in range(1, 8):
         b = cuda_uv_rhs.smem_bytes(other, nz, 4)
-        if b <= cuda_uv_rhs.SMEM_BLOCK:
-            n = min(cuda_uv_rhs.SMEM_SM // (b + cuda_uv_rhs.SMEM_RESERVED),
+        if b <= _build.SMEM_BLOCK:
+            n = min(_build.SMEM_SM // (b + _build.SMEM_RESERVED),
                     cuda_uv_rhs.THREADS_SM[4] // (64 * other))
             assert n * 64 * other <= threads
 
 
-@pytest.mark.parametrize("nz", [1, cuda_uv_rhs.NZ_MAX + 1])
-def test_nz_outside_the_kernel_raises(nz):
-    with pytest.raises(ValueError, match="nz"):
-        cuda_uv_rhs.launch_plan(4, nz)
-
-
-def test_gate_reads_depth_and_pad():
-    cfg = ModelConfig(nx=24, ny=18, nz=60)
-    assert cuda_uv_rhs.usable(cfg)
-    assert cuda_uv_rhs.usable(cfg.replace(nz=cuda_uv_rhs.NZ_MAX))
-    assert not cuda_uv_rhs.usable(cfg.replace(nz=cuda_uv_rhs.NZ_MAX + 1))
-    assert not cuda_uv_rhs.usable(cfg.replace(pad_e=1))
-    assert not cuda_uv_rhs.usable(cfg.replace(pad_n=1))
-
-
 @pytest.mark.parametrize("parts, change, takes", [
-    (False, {}, "uv_rhs"),
-    (True, {}, "uv_rhs_plain"),
-    (False, dict(pad_e=1), "uv_rhs_plain"),
-    (False, dict(nz=cuda_uv_rhs.NZ_MAX + 1), "uv_rhs_plain"),
+    (False, {}, ["uv_rhs", "uv_rhs_plain"]),
+    (True, {}, ["uv_rhs", "uv_rhs_plain"]),
+    (False, dict(pad_e=1), ["uv_rhs", "uv_rhs_plain"]),
+    (False, dict(nz=cuda_uv_rhs.NZ_MAX + 1), ["uv_rhs", "uv_rhs_plain"]),
 ])
 def test_step_dispatch(monkeypatch, parts, change, takes):
-    """`stepper._uv_rhs` calls the wrapper where the gate admits the
-    configuration and the budget's split is not asked for; else the
-    plain version, which alone returns the Coriolis part."""
+    """`stepper._uv_rhs` calls the wrapper for every call, the budget's
+    split included, whatever the configuration: the wrapper decides its
+    own path (here, on the CPU, the plain version, which alone returns the
+    Coriolis part)."""
     cfg, args, grid = _inputs()
     cfg = cfg.replace(**change)
     seen = []
@@ -110,37 +96,25 @@ def test_step_dispatch(monkeypatch, parts, change, takes):
         def record(*a, _name=name, _real=real, **kw):
             seen.append(_name)
             return _real(*a, **kw)
-        record.launches = record.plain_calls = 0     # the wrapper's counters
         monkeypatch.setattr(cuda_uv_rhs, name, record)
     out = stepper._uv_rhs(*args, grid, cfg, AdvScheme.UPSTREAM3, parts=parts)
-    assert seen[0] == takes
+    assert seen == takes
     assert len(out) == (4 if parts else 2)
 
 
 def test_counters_on_the_cpu():
-    """A CPU tensor takes the plain version: no launch, one plain call;
-    the budget's split returns the Coriolis part beside the sum."""
+    """A CPU tensor takes the plain version: no launch, one plain call a
+    call; the budget's split returns the Coriolis part beside the sum."""
     cfg, args, grid = _inputs(seed=4)
-    before = cuda_uv_rhs.uv_rhs.launches, cuda_uv_rhs.uv_rhs.plain_calls
+    stats = _build.kernel_stats["uv_rhs"]
+    before = stats["launches"], stats["plain"]
     ru, rv = cuda_uv_rhs.uv_rhs(*args, grid, cfg, AdvScheme.CENTERED4)
-    assert (cuda_uv_rhs.uv_rhs.launches,
-            cuda_uv_rhs.uv_rhs.plain_calls) == (before[0], before[1] + 1)
-    ru2, rv2, cu, cv = cuda_uv_rhs.uv_rhs_plain(
+    assert (stats["launches"], stats["plain"]) == (before[0], before[1] + 1)
+    ru2, rv2, cu, cv = cuda_uv_rhs.uv_rhs(
         *args, grid, cfg, AdvScheme.CENTERED4, parts=True)
+    assert (stats["launches"], stats["plain"]) == (before[0], before[1] + 2)
     assert torch.equal(ru, ru2) and torch.equal(rv, rv2)
     assert cu.abs().max() > 0 and cv.abs().max() > 0
-
-
-def test_no_kernel_for_another_device():
-    cfg = ModelConfig(nx=24, ny=18, nz=10)
-    m = torch.empty((10, 22, 28), dtype=torch.float64, device="meta")
-    w = torch.empty((11, 22, 28), dtype=torch.float64, device="meta")
-    p = torch.empty((22, 28), dtype=torch.float64, device="meta")
-    grid = types.SimpleNamespace(fomn=p, dndx=None, dmde=None, umask=p,
-                                 vmask=p, own_w=None, own_e=None,
-                                 own_s=None, own_n=None)
-    with pytest.raises(ValueError, match="no kernel"):
-        cuda_uv_rhs.uv_rhs(m, m, m, m, m, w, grid, cfg, AdvScheme.UPSTREAM3)
 
 
 # ---------------------------------------------------------------- the card
@@ -176,11 +150,12 @@ TOL = {torch.float64: (1e-12, 1e-12), torch.float32: (1e-5, 1e-5)}
 def test_kernel_is_its_plain_version_on_the_card(card, case, dtype, scheme):
     kw, own = CARD_CASES[case]
     cfg, args, grid = _inputs(dtype, card, own, **kw)
-    before = cuda_uv_rhs.uv_rhs.launches
+    stats = _build.kernel_stats["uv_rhs"]
+    before = stats["launches"]
     got = cuda_uv_rhs.uv_rhs(*args, grid, cfg, scheme)
     ref = cuda_uv_rhs.uv_rhs_plain(*args, grid, cfg, scheme)
     torch.cuda.synchronize()
-    assert cuda_uv_rhs.uv_rhs.launches == before + 1
+    assert stats["launches"] == before + 1
     rtol, atol = TOL[dtype]
     for g, r in zip(got, ref):
         r = r.double()
@@ -204,13 +179,13 @@ def test_step_takes_the_kernel_on_the_card(card):
         st, _ = run(grid, st, frc, cfg, nsteps=2, collect_diag=False)
         torch.cuda.synchronize()
         return st
-    n0 = cuda_uv_rhs.uv_rhs.launches, cuda_uv_rhs.uv_rhs.plain_calls
+    stats = _build.kernel_stats["uv_rhs"]
+    n0 = stats["launches"], stats["plain"]
     got = steps()
-    assert (cuda_uv_rhs.uv_rhs.launches - n0[0],
-            cuda_uv_rhs.uv_rhs.plain_calls - n0[1]) == (4, 0)
+    assert (stats["launches"] - n0[0], stats["plain"] - n0[1]) == (4, 0)
     kernel = cuda_uv_rhs.uv_rhs
     try:
-        cuda_uv_rhs.uv_rhs = lambda *a: cuda_uv_rhs.uv_rhs_plain(*a)
+        cuda_uv_rhs.uv_rhs = cuda_uv_rhs.uv_rhs_plain
         ref = steps()
     finally:
         cuda_uv_rhs.uv_rhs = kernel
